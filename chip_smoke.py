@@ -1,0 +1,518 @@
+"""On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py
+
+Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
+
+1. device  — refuse to run without ``torch.cuda.is_available()``; print the
+   card's name and power limit (``nvidia-smi``).
+2. build   — compile the hand-written kernels from ``src/repro_torch/
+   kernels/csrc`` (one ``nvcc`` per source, in parallel).
+3. kernels — hold each kernel against its plain PyTorch version on the
+   card, at the serving path's shapes (full-width stablelm-3b), a GQA
+   shape at qwen2-7b widths, a ring-window case and a paged case with
+   null pages, in bf16 and f32; time kernel, plain version and one
+   library call (a yardstick the port never calls) with CUDA events,
+   the L2 cache flushed before every launch.
+4. serve   — full-width stablelm-3b (random weights from a seed, bf16
+   compute) through ``DecodeEngine``: a warm-up run, then the dense cache,
+   then pages of 16 lines; fail if a kernel of the path never launched or
+   a request came back short.  Then a ``torch.profiler`` trace of one steady dense
+   decode chunk: its wall time against the device's busy time.
+5. consistency — one request's prefill logits and first decode steps
+   through the kernels against the plain versions, at full width.
+6. summary — the kernels line, then the device line last.
+
+Exits non-zero on any failure, and when no card is present.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16
+# and f32 (non-tensor-core) flop/s
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+SEED = 0
+
+
+def log(*parts):
+    print(*parts, flush=True)
+
+
+# ----------------------------------------------------------------- timing ----
+
+def time_ms(fn, iters: int = 20) -> float:
+    """Median device time of one call, with the L2 cache (50 MB) flushed
+    before every call: on the serving path each layer's attention finds
+    its KV lines cold, behind the other layers' weights."""
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+# ------------------------------------------------------------ kernels ----
+
+def rand(gen, shape, dtype):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def check(name, got, want, dtype, what):
+    err = max_err(got, want)
+    tol = TOL[dtype]
+    ok = math.isfinite(err) and err <= tol
+    log(f"  {name:<19} {what:<46} max|err| {err:.3e} (tol {tol:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"{what}: {err} > {tol}")
+    return err
+
+
+def kernel_phase(shape_cfg) -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    H, K, Dh = shape_cfg["H"], shape_cfg["K"], shape_cfg["Dh"]
+    slots, cache_len, L = (shape_cfg["slots"], shape_cfg["cache_len"],
+                           shape_cfg["prefill_len"])
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {}
+
+    # ---- flash_attention: prefill of one sequence ------------------------
+    errs = []
+    cases = [(1, n, H, K, Dh, None, bf16) for n in (32, 64, 128, cache_len)]
+    cases += [(1, 100, H, K, Dh, None, f32),          # ragged S
+              (2, 96, 28, 4, 128, None, bf16),        # qwen2-7b GQA
+              (1, 256, 28, 4, 128, 64, f32)]          # sliding window
+    for B, S, h, k, d, window, dt in cases:
+        q, kk, v = (rand(gen, (B, S, n, d), dt) for n in (h, k, k))
+        got = fa.flash_attention_bshd(q, kk, v, window=window)
+        err = check("flash_attention", got, ref.attention_ref(q, kk, v,
+                                                              window),
+                    dt, f"q({B},{S},{h},{d}) kv {k} heads w={window} "
+                    f"{str(dt)[6:]}")
+        if dt == bf16 and h == H:
+            errs.append(err)
+    q, kk, v = (rand(gen, (1, L, n, Dh), bf16) for n in (H, K, K))
+    ms = time_ms(lambda: fa.flash_attention_bshd(q, kk, v))
+    plain = time_ms(lambda: ref.attention_ref(q, kk, v))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), kk.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True))
+    nbytes = 2 * (2 * L * H * Dh + 2 * L * K * Dh)          # q, o, k, v
+    flops = 4 * Dh * H * L * (L + 1) / 2                    # causal QK + PV
+    b, by = bound_ms(nbytes, flops, bf16)
+    out["flash_attention"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:94",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b,
+        bound_by=by, library_ms=lib,
+        shape=f"q/k/v (1,{L},{H},{Dh}) bf16 causal")
+    # the largest bucket of the serving path, for the record
+    q2, k2, v2 = (rand(gen, (1, cache_len, n, Dh), bf16) for n in (H, K, K))
+    n = cache_len
+    b_n = bound_ms(2 * (2 * n * H * Dh + 2 * n * K * Dh),
+                   4 * Dh * H * n * (n + 1) / 2, bf16)[0]
+    log(f"  flash_attention at L={n}: "
+        f"{time_ms(lambda: fa.flash_attention_bshd(q2, k2, v2)):.4f} ms "
+        f"(bound {b_n:.4f} ms)")
+
+    # ---- flash_decode: dense cache (and the ring) ------------------------
+    errs = []
+    positions = torch.tensor([cache_len - 1, 300, 17, 0][:slots] +
+                             [cache_len // 2] * max(0, slots - 4),
+                             dtype=torch.int32, device="cuda")
+    dcases = [(slots, cache_len, H, K, Dh, None, bf16, bf16, positions),
+              (slots, cache_len, H, K, Dh, None, f32, f32, positions),
+              (slots, cache_len, H, K, Dh, None, f32, bf16, positions),
+              (3, 256, 28, 4, 128, None, bf16, bf16,
+               torch.tensor([255, 3, 128], dtype=torch.int32,
+                            device="cuda")),
+              (3, 64, H, K, Dh, 64, bf16, bf16,              # ring wraps
+               torch.tensor([200, 63, 5], dtype=torch.int32, device="cuda")),
+              (2, 48, 28, 4, 128, 64, f32, f32,              # window > slots
+               torch.tensor([150, 20], dtype=torch.int32, device="cuda"))]
+    for B, S, h, k, d, window, qdt, kvdt, pos in dcases:
+        q = rand(gen, (B, 1, h, d), qdt)
+        kc, vc = (rand(gen, (B, S, k, d), kvdt) for _ in range(2))
+        got = fd.flash_decode_bshd(q, kc, vc, pos, window=window)
+        want = ref.decode_attention_ref(q, kc, vc, pos, window=window)
+        err = check("flash_decode", got, want, qdt,
+                    f"q({B},1,{h},{d}) cache {S}x{k} w={window} "
+                    f"{str(qdt)[6:]}/{str(kvdt)[6:]}")
+        if qdt == bf16 and h == H and window is None:
+            errs.append(err)
+    full = torch.full((slots,), cache_len - 1, dtype=torch.int32,
+                      device="cuda")
+    q = rand(gen, (slots, 1, H, Dh), bf16)
+    kc, vc = (rand(gen, (slots, cache_len, K, Dh), bf16) for _ in range(2))
+    ms = time_ms(lambda: fd.flash_decode_bshd(q, kc, vc, full))
+    plain = time_ms(lambda: ref.decode_attention_ref(q, kc, vc, full))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)))
+    lines = slots * cache_len
+    nbytes = 2 * (lines * 2 * K * Dh + 2 * slots * H * Dh) + 4 * slots
+    flops = 4 * H * Dh * lines
+    b, by = bound_ms(nbytes, flops, bf16)
+    out["flash_decode"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_decode.cu",
+        replaces="src/repro/kernels/flash_decode.py:97",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b,
+        bound_by=by, library_ms=lib,
+        shape=f"q ({slots},1,{H},{Dh}), cache ({slots},{cache_len},{K},{Dh})"
+              f" bf16, all {cache_len} lines live")
+
+    # ---- flash_decode_paged ----------------------------------------------
+    errs = []
+    ps = 16
+    n_tab = cache_len // ps
+    num_pages = slots * n_tab + 1
+    perm = torch.randperm(num_pages - 1, generator=gen, device="cuda") + 1
+    table_full = perm[:slots * n_tab].reshape(slots, n_tab).to(torch.int32)
+    # live pages per row up to pos, null pages (0) past them
+    table_null = table_full.clone()
+    for i, p in enumerate(positions.tolist()):
+        table_null[i, p // ps + 1:] = 0
+    pcases = [(H, K, Dh, bf16, bf16, table_null, positions),
+              (H, K, Dh, f32, f32, table_null, positions),
+              (H, K, Dh, f32, bf16, table_full, positions),
+              (28, 4, 128, bf16, bf16, table_null, positions)]
+    for h, k, d, qdt, kvdt, table, pos in pcases:
+        q = rand(gen, (slots, 1, h, d), qdt)
+        kp, vp = (rand(gen, (num_pages, ps, k, d), kvdt) for _ in range(2))
+        got = fd.flash_decode_paged_bshd(q, kp, vp, table, pos)
+        want = ref.paged_decode_attention_ref(q, kp, vp, table, pos)
+        nulls = int((table == 0).sum())
+        err = check("flash_decode_paged", got, want, qdt,
+                    f"q({slots},1,{h},{d}) pool {num_pages}x{ps}x{k} "
+                    f"{nulls} null {str(qdt)[6:]}/{str(kvdt)[6:]}")
+        if qdt == bf16 and h == H:
+            errs.append(err)
+    q = rand(gen, (slots, 1, H, Dh), bf16)
+    kp, vp = (rand(gen, (num_pages, ps, K, Dh), bf16) for _ in range(2))
+    ms = time_ms(lambda: fd.flash_decode_paged_bshd(q, kp, vp, table_full,
+                                                    full))
+    plain = time_ms(lambda: ref.paged_decode_attention_ref(q, kp, vp,
+                                                           table_full, full))
+    nbytes = (2 * (lines * 2 * K * Dh + 2 * slots * H * Dh) + 4 * slots
+              + 4 * slots * n_tab)
+    b, by = bound_ms(nbytes, flops, bf16)
+    out["flash_decode_paged"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_decode.cu",
+        replaces="src/repro/kernels/flash_decode.py:200",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b,
+        bound_by=by, library_ms=None,
+        shape=f"q ({slots},1,{H},{Dh}), pool ({num_pages},{ps},{K},{Dh}) "
+              f"bf16, table {slots}x{n_tab}, all {cache_len} lines live")
+    for name, r in out.items():
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log(f"  {name:<19} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return out
+
+
+# -------------------------------------------------------------- serving ----
+
+def serve_phase(cfg, params, paged: bool, args, device="cuda",
+                label=None) -> dict:
+    from repro_torch.kernels import ops
+    from repro_torch.monitoring import MetricsRegistry
+    from repro_torch.serving import DecodeEngine, Request
+
+    rng = np.random.default_rng(SEED)
+    requests = []
+    for rid in range(args["requests"]):
+        plen = int(rng.integers(4, args["cache_len"] // 4))
+        prompt = rng.integers(2, cfg.vocab_size, plen).astype(np.int32)
+        requests.append(Request(rid=rid, prompt=prompt,
+                                max_new_tokens=args["max_new"],
+                                temperature=float(rid % 2) * 0.8))
+    metrics = MetricsRegistry()
+    engine = DecodeEngine(cfg, params, num_slots=args["slots"],
+                          cache_len=args["cache_len"], metrics=metrics,
+                          seed=SEED, decode_chunk=args["decode_chunk"],
+                          prefill_buckets="auto",
+                          kv_page_size=16 if paged else 0, device=device)
+    for r in requests:
+        engine.submit(r)
+    sync(device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    engine.run_to_completion()
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    total = int(metrics.counter("serve_tokens_generated").value())
+    want = sum(r.max_new_tokens - 1 for r in requests)
+    kind = label or ("paged (16-line pages)" if paged else "dense")
+    pre = metrics.histogram("serve_prefill_seconds")
+    dec = metrics.histogram("serve_decode_seconds")
+    # means are exact (histogram sum / count); p50s are interpolated inside
+    # the histogram's decade-wide buckets
+    log(f"  {kind}: {len(requests)} requests, {total} decode tokens in "
+        f"{wall:.3f} s = {total / wall:.1f} tok/s; prefill mean "
+        f"{pre.sum() / pre.count() * 1e3:.2f} ms (p50 "
+        f"{pre.quantile(0.5) * 1e3:.2f}, bucket-interpolated) over "
+        f"{pre.count()}; decode chunk ({args['decode_chunk']} tokens/slot) "
+        f"mean {dec.sum() / dec.count() * 1e3:.2f} ms (p50 "
+        f"{dec.quantile(0.5) * 1e3:.2f}, bucket-interpolated) over "
+        f"{dec.count()}; buckets used {sorted(engine.prefill_lengths)}; "
+        f"launches {launches}")
+    if not all(r.done and len(r.output) == r.max_new_tokens
+               for r in requests) or total != want:
+        raise AssertionError(f"{kind}: expected {want} decode tokens and "
+                             f"{args['max_new']} per request, got {total}")
+    for r in requests:
+        if not all(0 <= t < cfg.vocab_size for t in r.output):
+            raise AssertionError(f"{kind}: token out of vocabulary")
+    used = ["flash_attention", "flash_decode_paged" if paged
+            else "flash_decode"]
+    for name in used:
+        if launches[name] == 0 and device == "cuda":
+            raise AssertionError(f"{kind}: kernel {name} never launched on "
+                                 "the serving path")
+    return {"launches": launches, "tok_s": total / wall, "wall_s": wall}
+
+
+def profile_phase(cfg, params, args, device="cuda") -> dict:
+    """Where one steady decode chunk of the dense engine spends its time:
+    a ``torch.profiler`` trace of one ``engine.step()`` (every slot live,
+    nothing to admit), its wall time on the host clock (ending in a
+    synchronize) against the union of the device's kernel intervals."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import DecodeEngine, Request
+
+    rng = np.random.default_rng(SEED + 2)
+    chunk = args["decode_chunk"]
+    engine = DecodeEngine(cfg, params, num_slots=args["slots"],
+                          cache_len=args["cache_len"], seed=SEED,
+                          decode_chunk=chunk, prefill_buckets="auto",
+                          device=device)
+    for rid in range(args["slots"]):
+        engine.submit(Request(
+            rid=rid, prompt=rng.integers(2, cfg.vocab_size, 100).astype(
+                np.int32), max_new_tokens=4 * chunk))
+    engine.step()                          # prefill every slot + a chunk
+    engine.step()                          # warm
+    sync(device)
+    # device activity only on the card: recording every host op as well
+    # slows the traced chunk and the processing of the trace
+    activities = [ProfilerActivity.CUDA if device == "cuda"
+                  else ProfilerActivity.CPU]
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        engine.step()
+        sync(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, -math.inf
+    by_name: dict = {}
+    for s, e, name in spans:
+        busy_us += max(0.0, e - max(s, end))
+        end = max(end, e)
+        by_name[name] = by_name.get(name, 0.0) + (e - s)
+    busy_ms = busy_us / 1e3
+    device_part = (
+        f"device busy {busy_ms:.2f} ms ({busy_ms / wall_ms:.1%}), "
+        f"{len(spans)} device kernels ({len(spans) / chunk:.0f} per token "
+        "step)" if spans else
+        "device time not measured (the trace holds no device events)")
+    log(f"  profile: one dense decode chunk ({chunk} tokens x "
+        f"{args['slots']} slots, ~{int(engine.pos.mean())} live lines): wall "
+        f"{wall_ms:.2f} ms, {device_part}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+        log(f"    {us / 1e3:8.3f} ms  {name[:100]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernels": len(spans)}
+
+
+def consistency_phase(cfg, params, device="cuda") -> dict:
+    """Prefill logits and three decode steps of one request through the
+    kernels against the plain versions, both in bf16, with an f32 run of
+    the same (bf16-valued) weights as the yardstick.  The kernel route
+    must stay within 0.05 + 2x the plain route's own distance from the
+    f32 run."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.models.model import decode_step, init_cache, prefill
+    from repro_torch.serving.engine import cast_for_compute
+
+    rng = np.random.default_rng(SEED + 1)
+    P, steps = 77, 3
+    toks = torch.from_numpy(rng.integers(2, cfg.vocab_size, P).astype(
+        np.int32)).to(device)[None]
+    f32cfg = dataclasses.replace(cfg, dtype="float32")
+    runs = {}
+    with torch.no_grad():
+        for name, c, p, use_k in (
+                ("kernels", cfg, params, True),
+                ("plain", cfg, params, False),
+                ("f32", f32cfg, cast_for_compute(params, torch.float32),
+                 False)):
+            run = RunConfig(use_kernels=use_k)
+            logits, c1 = prefill(p, {"tokens": toks}, c, run, cache_len=256)
+            cache = init_cache(c, 1, 256, device=device)
+            for dst, src in zip(cache["layers"], c1["layers"]):
+                for kv in ("k", "v"):
+                    dst[kv][:, 0, :P].copy_(src[kv][:, 0])
+            seq = [logits[0, -1].float()]
+            tok = toks[:, -1:]
+            for s in range(steps):
+                # teacher-forced: every route feeds the same tokens
+                tok = torch.full((1, 1), 11 + 7 * s, dtype=torch.int32,
+                                 device=device)
+                lg, cache = decode_step(p, cache, tok,
+                                        torch.tensor([P + s], device=device),
+                                        c, run)
+                seq.append(lg[0, -1].float())
+            runs[name] = torch.stack(seq)
+            del p
+    for name, r in runs.items():
+        if not bool(torch.isfinite(r).all()) or r.shape != (
+                steps + 1, cfg.vocab_size):
+            raise AssertionError(f"consistency: {name} logits not finite "
+                                 f"or of shape {tuple(r.shape)}")
+    d_kp = max_err(runs["kernels"], runs["plain"])
+    d_k32 = max_err(runs["kernels"], runs["f32"])
+    d_p32 = max_err(runs["plain"], runs["f32"])
+    tol = 0.05 + 2 * d_p32
+    scale = float(runs["f32"].abs().max())
+    log(f"  prefill + {steps} decode steps, logits max|f32| {scale:.3f}: "
+        f"|kernels - plain| {d_kp:.4f}, |kernels - f32| {d_k32:.4f}, "
+        f"|plain - f32| {d_p32:.4f} (tol on |kernels - f32|: {tol:.4f})")
+    argmax_same = bool((runs["kernels"].argmax(-1)
+                        == runs["f32"].argmax(-1)).all())
+    log(f"  argmax agrees with the f32 run at every step: {argmax_same}")
+    if d_k32 > tol:
+        raise AssertionError(f"consistency: kernel route {d_k32} from the "
+                             f"f32 run, tolerance {tol}")
+    return {"kernels_vs_plain": d_kp, "kernels_vs_f32": d_k32,
+            "plain_vs_f32": d_p32}
+
+
+# ----------------------------------------------------------------- main ----
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
+                         "is_available() is False)")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import cast_for_compute
+
+    resolve_device("cuda")                 # pins TF32 off for f32 products
+    t_start = time.perf_counter()
+    log(f"[1/6] device: {smi} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
+
+    t0 = time.perf_counter()
+    build.build_all(verbose=True)
+    log(f"[2/6] build: kernels built in {time.perf_counter() - t0:.1f} s "
+        f"({build.BUILD_ROOT / build.source_hash()})")
+
+    cfg = get_config("stablelm-3b")
+    shape = dict(H=cfg.num_heads, K=cfg.num_kv_heads, Dh=cfg.head_dim,
+                 slots=4, cache_len=512, prefill_len=128)
+    log(f"[3/6] kernels vs plain versions (tolerance bf16 {TOL[torch.bfloat16]}"
+        f", f32 {TOL[torch.float32]}; times: median of 20 launches, L2 "
+        "flushed):")
+    kernels = kernel_phase(shape)
+
+    log(f"[4/6] serve: full-width {cfg.name} ({cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} heads x {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), random weights seed "
+        f"{SEED}, bf16 compute")
+    params = cast_for_compute(init_params(cfg, SEED, "cuda"), torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"  params {cfg.param_count() / 1e9:.3f} B, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    args = dict(requests=8, slots=shape["slots"],
+                cache_len=shape["cache_len"], max_new=32, decode_chunk=8)
+    # the first run in the process pays one-time costs (cuBLAS set-up and
+    # heuristics for each product shape), which would land on the dense run
+    serve_phase(cfg, params, False, args, label="warm-up (dense, not kept)")
+    dense = serve_phase(cfg, params, False, args)
+    paged = serve_phase(cfg, params, True, args)
+    profile_phase(cfg, params, args)
+
+    log("[5/6] consistency at full width (kernels vs plain versions):")
+    consistency_phase(cfg, params)
+
+    launches = {name: dense["launches"][name] + paged["launches"][name]
+                for name in kernels}
+    summary = {name: {"max_abs_err": r["max_abs_err"],
+                      "launches": launches[name]}
+               for name, r in kernels.items()}
+    log(f"[6/6] summary ({time.perf_counter() - t_start:.1f} s; serve "
+        f"dense {dense['tok_s']:.1f} tok/s, paged {paged['tok_s']:.1f} "
+        "tok/s; launches summed over both serve runs)")
+    log("kernels " + json.dumps(summary))
+    log(smi)
+    line = {"kernels": [dict(name=name, route=r["route"], source=r["source"],
+                             replaces=r["replaces"],
+                             launches=launches[name],
+                             max_abs_err=r["max_abs_err"], ms=r["ms"],
+                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                             bound_by=r["bound_by"],
+                             library_ms=r["library_ms"])
+                        for name, r in kernels.items()]}
+    log(json.dumps(line))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
