@@ -11,9 +11,15 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
 3. kernels — hold each kernel against its plain PyTorch version on the
    card, at the serving path's shapes (full-width stablelm-3b), a GQA
    shape at qwen2-7b widths, a ring-window case and a paged case with
-   null pages, in bf16 and f32; time kernel, plain version and one
+   null pages, in bf16 and f32; the SSD scan at the training path's
+   shape (full-width mamba2-780m), the JAX package's ``SSD_CASES`` and a
+   chunk that ``_pick_block`` shrinks, on inputs strided as the training
+   path gives them, against its chunked plain version and the
+   token-by-token oracle; time kernel, plain version and one
    library call (a yardstick the port never calls) with CUDA events,
-   the L2 cache flushed before every launch.
+   the L2 cache flushed before every launch.  Then the gradients of the
+   two kernels that training differentiates (``ops.flash_attention``,
+   ``ops.ssd_scan``) against plain autograd.
 4. serve   — full-width stablelm-3b (random weights from a seed, bf16
    compute) through ``DecodeEngine``: a warm-up run, then the dense cache,
    then pages of 16 lines; fail if a kernel of the path never launched or
@@ -21,7 +27,15 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
    decode chunk: its wall time against the device's busy time.
 5. consistency — one request's prefill logits and first decode steps
    through the kernels against the plain versions, at full width.
-6. summary — the kernels line, then the device line last.
+6. train   — full-width mamba2-780m (f32 weights from a seed, bf16
+   compute, f32 AdamW state, layer recomputation) through ``Trainer``:
+   2 x 2048-token microbatches a step, one warm-up step, then 4 steps;
+   fail on a non-finite loss, a first loss far from ln(vocab), or an
+   ``ssd_scan`` launch count other than the run implies.
+7. train consistency — loss and gradients of one full-width microbatch
+   through the kernels and the plain versions, in f32 (held close) and in
+   bf16 (held to the f32 run), with the bf16 gap's parameters listed.
+8. summary — the kernels line, then the device line last.
 
 Exits non-zero on any failure, and when no card is present.
 """
@@ -30,6 +44,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -47,6 +62,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# the training consistency check in f32: the kernel and plain routes sum
+# the same terms in another order (f32 rounding, ~1e-7 relative a step)
+F32_LOSS_TOL, F32_GRAD_TOL = 1e-4, 1e-3
 SEED = 0
 
 
@@ -97,11 +115,21 @@ def rand(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
-def check(name, got, want, dtype, what):
+def check(name, got, want, dtype, what, relative=False):
+    """max |got - want| against TOL[dtype]; with ``relative`` each element
+    may differ by TOL * (1 + |want|) (one rounding of a value of magnitude
+    |want| in the working dtype)."""
     err = max_err(got, want)
     tol = TOL[dtype]
-    ok = math.isfinite(err) and err <= tol
-    log(f"  {name:<19} {what:<46} max|err| {err:.3e} (tol {tol:g}) "
+    if relative:
+        excess = float(((got.float() - want.float()).abs()
+                        - tol * want.float().abs()).max())
+        ok = math.isfinite(err) and excess <= tol
+        tol_s = f"{tol:g} + {tol:g}|ref|"
+    else:
+        ok = math.isfinite(err) and err <= tol
+        tol_s = f"{tol:g}"
+    log(f"  {name:<19} {what:<46} max|err| {err:.3e} (tol {tol_s}) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version: "
@@ -253,6 +281,113 @@ def kernel_phase(shape_cfg) -> dict:
             f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     return out
+
+
+def ssd_kernel_phase(cfg, batch: int, seq_len: int) -> dict:
+    """The SSD scan against its chunked plain version and the token-by-token
+    oracle, in bf16 and f32, at the training shape of ``cfg``, the JAX
+    package's ``SSD_CASES`` (``tests/test_kernels.py``) and a chunk that
+    ``_pick_block`` shrinks, on inputs strided as on the training path;
+    then its time at the training shape."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as ssd
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    ssm = cfg.ssm
+    H, P, N = ssm.num_heads(cfg.d_model), ssm.head_dim, ssm.state
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def inputs(B, S, h, p, n, dtype):
+        # x, Bm and Cm as ``ssm_train`` hands them over: slices of one
+        # (B, S, h*p + 2n) conv output, so x's S stride is h*p + 2n
+        u = rand(gen, (B, S, h * p + 2 * n), dtype)
+        x = u[..., :h * p].reshape(B, S, h, p)
+        Bm, Cm = u[..., h * p:h * p + n], u[..., h * p + n:]
+        dt = torch.rand((B, S, h), generator=gen, device="cuda") * 0.099 \
+            + 1e-3
+        A = -(torch.rand((h,), generator=gen, device="cuda") * 3.5 + 0.5)
+        return x, dt, A, dt * A, Bm, Cm
+
+    errs = []
+    cases = [(batch, seq_len, H, P, N, ssm.chunk),       # the training shape
+             (2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 32, 64),
+             (2, 64, 1, 16, 8, 64), (1, 96, 3, 32, 128, 32),   # SSD_CASES
+             (1, 96, 2, 64, 128, 64)]                   # chunk 64 -> 48
+    for B, S, h, p, n, chunk in cases:
+        Q = ops._pick_block(S, chunk)
+        for dt_ in (bf16, f32):
+            x, dt, A, a, Bm, Cm = inputs(B, S, h, p, n, dt_)
+            got = ssd.ssd_scan_bshp(x, dt, a, Bm, Cm, Q)
+            what = f"x({B},{S},{h},{p}) N {n} Q {Q} {str(dt_)[6:]}"
+            err = check("ssd_scan", got, ref.ssd_scan_ref(x, dt, a, Bm, Cm, Q),
+                        dt_, what + " vs chunked", relative=True)
+            check("ssd_scan", got, ref.ssd_ref(x, dt, A, Bm, Cm), dt_,
+                  what + " vs oracle", relative=True)
+            if dt_ == bf16 and (B, S) == (batch, seq_len):
+                errs.append(err)
+    x, dt, A, a, Bm, Cm = inputs(batch, seq_len, H, P, N, bf16)
+    Q = ops._pick_block(seq_len, ssm.chunk)
+    ms = time_ms(lambda: ssd.ssd_scan_bshp(x, dt, a, Bm, Cm, Q))
+    plain = time_ms(lambda: ref.ssd_scan_ref(x, dt, a, Bm, Cm, Q))
+    tokens = batch * seq_len
+    # each input of the function read once, y written once: x, y, Bm, Cm
+    # bf16; dt (B, S, H) and A (H,) f32 (a = dt * A is derived from them)
+    nbytes = 2 * 2 * tokens * H * P + 4 * tokens * H + 4 * H \
+        + 2 * 2 * tokens * N
+    # per chunk, over its causal pairs k <= q: C B^T once (every head shares
+    # it), then per head its product with x dt, and the two products with
+    # the state (its term in y, its update)
+    pairs = Q * (Q + 1) // 2
+    flops = batch * (seq_len // Q) * (
+        2 * pairs * N + H * (2 * pairs * P + 4 * Q * N * P))
+    b, by = bound_ms(nbytes, flops, bf16)
+    r = dict(route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan.py:80",
+             max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b,
+             bound_by=by, library_ms=None,
+             shape=f"x ({batch},{seq_len},{H},{P}), N {N}, Q {Q} bf16 "
+                   f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    log(f"  {'ssd_scan':<19} {r['shape']}: kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, library n/a ms, bound {b:.4f} ms ({by})")
+    return {"ssd_scan": r}
+
+
+def grad_phase():
+    """Gradients through the two kernels training differentiates: the
+    autograd functions of ``kernels.ops`` (kernel forward, plain recompute
+    in the backward) against plain autograd, f32, small shapes."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    f32 = torch.float32
+
+    def grads(fn, ins, w):
+        ins = [t.detach().clone().requires_grad_(True) for t in ins]
+        out = fn(*ins)
+        return torch.autograd.grad((out.float() * w).sum(), ins)
+
+    x = rand(gen, (2, 192, 4, 32), f32)
+    dt = torch.rand((2, 192, 4), generator=gen, device="cuda") * 0.099 + 1e-3
+    A = -(torch.rand((4,), generator=gen, device="cuda") * 3.5 + 0.5)
+    Bm, Cm = (rand(gen, (2, 192, 16), f32) for _ in range(2))
+    w = rand(gen, x.shape, f32)
+    got = grads(lambda *t: ops.ssd_scan(*t, chunk=64), (x, dt, A, Bm, Cm), w)
+    want = grads(lambda x_, dt_, A_, B_, C_: ref.ssd_scan_ref(
+        x_, dt_, dt_ * A_, B_, C_, 64), (x, dt, A, Bm, Cm), w)
+    for name, g, r in zip(("x", "dt", "A", "Bm", "Cm"), got, want):
+        check("ssd_scan grad", g, r, f32, f"d{name} at x(2,192,4,32) N 16 "
+              "Q 64", relative=True)
+    q, k, v = (rand(gen, (1, 96, n, 64), f32) for n in (8, 2, 2))
+    w = rand(gen, q.shape, f32)
+    for window in (None, 32):
+        got = grads(lambda *t: ops.flash_attention(*t, window=window),
+                    (q, k, v), w)
+        want = grads(lambda *t: ref.attention_ref(*t, window=window),
+                     (q, k, v), w)
+        for name, g, r in zip("qkv", got, want):
+            check("flash_attn grad", g, r, f32,
+                  f"d{name} at q(1,96,8,64) kv 2 heads w={window}",
+                  relative=True)
 
 
 # -------------------------------------------------------------- serving ----
@@ -435,6 +570,207 @@ def consistency_phase(cfg, params, device="cuda") -> dict:
             "plain_vs_f32": d_p32}
 
 
+# ------------------------------------------------------------- training ----
+
+def train_phase(cfg, args, kernel_ms: float, device="cuda") -> dict:
+    """Full-width training through ``Trainer`` with the kernels: one
+    warm-up step (not kept), then ``args["steps"]`` steps with the launch
+    counts set to 0 just before them and read just after.  ``kernel_ms``
+    is the SSD kernel's time at the step's shape (phase 3), for its share
+    of the step."""
+    from repro_torch.configs import InputShape, RunConfig
+    from repro_torch.kernels import ops, ref
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.training import Trainer, TrainerConfig
+
+    B, S, micro = args["batch"], args["seq_len"], args["microbatches"]
+    run = RunConfig(use_kernels=True, remat="layer", microbatches=micro)
+    trainer = Trainer(cfg, run, InputShape("smoke", S, B, "train"),
+                      OptimizerConfig(), TrainerConfig(steps=1, seed=SEED),
+                      device=device)
+    trainer.init_state()
+    sync(device)
+    log(f"  params {cfg.param_count():,} f32 + AdamW m, v: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    t0 = time.perf_counter()
+    warm = trainer.train(log=lambda *_: None)[0]
+    log(f"  warm-up step (not kept): loss {warm['loss']:.4f}, "
+        f"{time.perf_counter() - t0:.2f} s")
+    trainer.tcfg.steps = 1 + args["steps"]
+    torch.cuda.reset_peak_memory_stats()
+    sync(device)
+    ops.reset_launch_counts()
+    trainer.train(log=lambda *_: None)
+    sync(device)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    kept = trainer.history[1:]
+    secs = [h["sec"] for h in kept]
+    tok = B * S
+    for h in kept:
+        log(f"  step {h['step']}: loss {h['loss']:.4f}, grad norm "
+            f"{h['grad_norm']:.4f}, {h['sec']:.3f} s, "
+            f"{tok / h['sec']:,.0f} tok/s")
+    med = statistics.median(secs)
+    log(f"  {len(kept)} steps of {B} x {S} tokens in {micro} microbatches: "
+        f"median {med:.3f} s/step = {tok / med:,.0f} tok/s; peak memory "
+        f"{peak / 2**30:.2f} GiB (max_memory_allocated); launches {launches}")
+    first = trainer.history[0]["loss"]
+    ln_v = math.log(cfg.vocab_size)
+    if not all(math.isfinite(h["loss"]) for h in trainer.history):
+        raise AssertionError("train: a loss is not finite")
+    if abs(first - ln_v) > 1.5:
+        raise AssertionError(f"train: first loss {first} is more than 1.5 "
+                             f"from ln({cfg.vocab_size}) = {ln_v:.3f}")
+    ssm_layers = sum(k == "ssm" for k in cfg.layer_kinds())
+    # each SSM layer launches once per microbatch forward, and once more
+    # when layer recomputation reruns the forward in the backward pass
+    want = len(kept) * micro * ssm_layers * (2 if run.remat != "none" else 1)
+    if launches["ssd_scan"] != want:
+        raise AssertionError(f"train: ssd_scan launched "
+                             f"{launches['ssd_scan']} times, expected {want}")
+    per_step = want / len(kept) * kernel_ms / 1e3
+    log(f"  ssd_scan kernel: {want // len(kept)} launches per step x "
+        f"{kernel_ms:.3f} ms = {per_step:.3f} s, {per_step / med:.1%} of the "
+        "median step")
+    # the plain backward of the scan: its recompute + backward at one
+    # layer's shape, times the layers and microbatches of a step
+    ssm = cfg.ssm
+    H, P, N = ssm.num_heads(cfg.d_model), ssm.head_dim, ssm.state
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    b = B // micro
+    x = rand(gen, (b, S, H, P), torch.bfloat16)
+    dt = torch.rand((b, S, H), generator=gen, device="cuda") * 0.099 + 1e-3
+    a = -dt * 4.0
+    Bm, Cm = (rand(gen, (b, S, N), torch.bfloat16) for _ in range(2))
+    gy = rand(gen, x.shape, torch.bfloat16)
+    Q = ops._pick_block(S, ssm.chunk)
+
+    def plain_backward():
+        ins = [t.detach().requires_grad_(True) for t in (x, dt, a, Bm, Cm)]
+        torch.autograd.grad(ref.ssd_scan_ref(*ins, Q), ins, gy)
+
+    bwd_ms = time_ms(plain_backward, iters=5)
+    per_step = bwd_ms * ssm_layers * micro / 1e3
+    log(f"  plain backward of the scan (recompute + backward, one layer, "
+        f"{b} x {S}): {bwd_ms:.3f} ms x {ssm_layers * micro} per step = "
+        f"{per_step:.3f} s, {per_step / med:.1%} of the median step")
+    return {"launches": launches, "step_s": med, "tok_s": tok / med,
+            "peak_gib": peak / 2**30, "losses": [h["loss"] for h in
+                                                 trainer.history]}
+
+
+def train_consistency_phase(cfg, args, device="cuda") -> dict:
+    """Loss and gradients of one full-width microbatch by four routes, all
+    from the same f32 weights: the kernels and the plain versions, each in
+    f32 and in bf16 compute.  In f32 the kernel route must match the plain
+    one to ``F32_LOSS_TOL`` on the loss and ``F32_GRAD_TOL`` on the
+    relative L2 error of the whole gradient: the scan kernel, at the
+    strided layout ``ssm_train`` hands it, held to its plain version through
+    every layer forward and backward.  In bf16 the kernel route must stay
+    within 0.05 + 2x the plain route's distance from the f32 plain run, for
+    the loss and the gradient; the parameters that carry that distance are
+    listed."""
+    from repro_torch.configs import InputShape, RunConfig
+    from repro_torch.models import init_params, loss_fn, make_batch
+    from repro_torch.tree import leaves_with_path
+
+    params = init_params(cfg, SEED + 1, device)
+    named = leaves_with_path(params)
+    xs = [leaf for _, leaf in named]
+    # one name for a parameter in every layer group: ['layers'][0]['ssm']
+    # ['A_log'] -> ['layers']['ssm']['A_log']
+    kinds = [re.sub(r"\[\d+\]", "", path) for path, _ in named]
+    batch = make_batch(cfg, InputShape("c", args["seq_len"],
+                                       args["batch"] // args["microbatches"],
+                                       "train"), SEED + 1, device=device)
+
+    def loss_and_grads(c, use_kernels):
+        for p in xs:
+            p.requires_grad_(True)
+        loss, _ = loss_fn(params, batch, c, RunConfig(
+            use_kernels=use_kernels, remat="layer"))
+        grads = torch.autograd.grad(loss, xs)
+        for p in xs:
+            p.requires_grad_(False)
+        return float(loss.detach()), grads
+
+    def by_layer(grads):
+        """Per layer (the leading axis of each group's stacked leaves, the
+        groups in order): the squared norm of the difference from the f32
+        gradient and of the f32 gradient itself."""
+        groups: dict = {}
+        for (path, _), g, r in zip(named, grads, g32):
+            m = re.match(r"\['layers'\]\[(\d+)\]", path)
+            if m:
+                acc = groups.setdefault(int(m.group(1)), [0.0, 0.0])
+                acc[0] += ((g.double() - r.double()) ** 2).flatten(1).sum(1)
+                acc[1] += (r.double() ** 2).flatten(1).sum(1)
+        return [torch.cat([groups[k][i] for k in sorted(groups)]).cpu()
+                for i in (0, 1)]
+
+    f32cfg = dataclasses.replace(cfg, dtype="float32")
+    l32, g32 = loss_and_grads(f32cfg, False)
+    sq32 = [float(torch.sum(g.double() ** 2)) for g in g32]
+    norm32 = math.sqrt(sum(sq32))
+    out, sq_diff = {}, {}
+    for name, c, use_k in (("kernels f32", f32cfg, True),
+                           ("kernels", cfg, True), ("plain", cfg, False)):
+        loss, grads = loss_and_grads(c, use_k)
+        if not math.isfinite(loss) or not all(
+                bool(torch.isfinite(g).all()) for g in grads):
+            raise AssertionError(f"train consistency: {name} route gives a "
+                                 "non-finite loss or gradient")
+        sq_diff[name] = [float(torch.sum((g.double() - r.double()) ** 2))
+                         for g, r in zip(grads, g32)]
+        out[name] = (loss, math.sqrt(sum(sq_diff[name])) / norm32)
+        if name == "plain":
+            depth = by_layer(grads)
+        del grads
+    (lk32, rk32), (lk, rk), (lp, rp) = (out["kernels f32"], out["kernels"],
+                                        out["plain"])
+    tol_l = 0.05 + 2 * abs(lp - l32)
+    tol_g = 0.05 + 2 * rp
+    log(f"  one microbatch ({args['batch'] // args['microbatches']} x "
+        f"{args['seq_len']}), f32 compute: loss plain {l32:.6f}, kernels "
+        f"{lk32:.6f}, |diff| {abs(lk32 - l32):.3e} (tol {F32_LOSS_TOL:g}); "
+        f"gradient relative L2 error {rk32:.3e} (tol {F32_GRAD_TOL:g})")
+    log(f"  bf16 compute: loss kernels {lk:.5f}, plain {lp:.5f}; |kernels - "
+        f"f32| {abs(lk - l32):.5f} (tol {tol_l:.5f}); gradient relative L2 "
+        f"error vs f32: kernels {rk:.5f}, plain {rp:.5f} (tol {tol_g:.5f})")
+    # where the bf16 routes' gradient distance from the f32 run sits
+    by_kind: dict = {}
+    for kind, s32, dk, dp in zip(kinds, sq32, sq_diff["kernels"],
+                                 sq_diff["plain"]):
+        acc = by_kind.setdefault(kind, [0.0, 0.0, 0.0])
+        acc[0] += s32
+        acc[1] += dk
+        acc[2] += dp
+    total_p = sum(sq_diff["plain"])
+    log("  bf16 gradient distance from f32 by parameter (share of the f32 "
+        "gradient's squared norm | share of the plain route's squared "
+        "distance | relative L2 error plain, kernels):")
+    for kind, (s32, dk, dp) in sorted(by_kind.items(),
+                                      key=lambda kv: -kv[1][2])[:8]:
+        log(f"    {kind:<34} {s32 / norm32 ** 2:7.2%} | {dp / total_p:7.2%} "
+            f"| {math.sqrt(dp / s32) if s32 else math.inf:.4f}, "
+            f"{math.sqrt(dk / s32) if s32 else math.inf:.4f}")
+    d_sq, r_sq = depth
+    n = len(d_sq)
+    at = sorted({0, n // 4, n // 2, 3 * n // 4, n - 1})
+    log("  bf16 plain route by depth, relative L2 error of a layer's "
+        "gradient vs f32: " + ", ".join(
+            f"layer {i} {math.sqrt(float(d_sq[i] / r_sq[i])):.4f}"
+            for i in at))
+    if abs(lk32 - l32) > F32_LOSS_TOL or rk32 > F32_GRAD_TOL:
+        raise AssertionError("train consistency: in f32 the kernel route "
+                             "differs from the plain route more than allowed")
+    if abs(lk - l32) > tol_l or rk > tol_g:
+        raise AssertionError("train consistency: the kernel route is "
+                             "further from the f32 run than allowed")
+    return {"loss": out, "tol_loss": tol_l, "tol_grad": tol_g}
+
+
 # ----------------------------------------------------------------- main ----
 
 def main() -> int:
@@ -453,23 +789,28 @@ def main() -> int:
 
     resolve_device("cuda")                 # pins TF32 off for f32 products
     t_start = time.perf_counter()
-    log(f"[1/6] device: {smi} | torch {torch.__version__} cuda "
+    log(f"[1/8] device: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     build.build_all(verbose=True)
-    log(f"[2/6] build: kernels built in {time.perf_counter() - t0:.1f} s "
+    log(f"[2/8] build: kernels built in {time.perf_counter() - t0:.1f} s "
         f"({build.BUILD_ROOT / build.source_hash()})")
 
     cfg = get_config("stablelm-3b")
+    tcfg = get_config("mamba2-780m")
+    targs = dict(batch=4, microbatches=2, seq_len=2048, steps=4)
     shape = dict(H=cfg.num_heads, K=cfg.num_kv_heads, Dh=cfg.head_dim,
                  slots=4, cache_len=512, prefill_len=128)
-    log(f"[3/6] kernels vs plain versions (tolerance bf16 {TOL[torch.bfloat16]}"
+    log(f"[3/8] kernels vs plain versions (tolerance bf16 {TOL[torch.bfloat16]}"
         f", f32 {TOL[torch.float32]}; times: median of 20 launches, L2 "
         "flushed):")
     kernels = kernel_phase(shape)
+    kernels.update(ssd_kernel_phase(tcfg, targs["batch"] //
+                                    targs["microbatches"], targs["seq_len"]))
+    grad_phase()
 
-    log(f"[4/6] serve: full-width {cfg.name} ({cfg.num_layers} layers, "
+    log(f"[4/8] serve: full-width {cfg.name} ({cfg.num_layers} layers, "
         f"d_model {cfg.d_model}, {cfg.num_heads} heads x {cfg.head_dim}, "
         f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), random weights seed "
         f"{SEED}, bf16 compute")
@@ -486,17 +827,36 @@ def main() -> int:
     paged = serve_phase(cfg, params, True, args)
     profile_phase(cfg, params, args)
 
-    log("[5/6] consistency at full width (kernels vs plain versions):")
+    log("[5/8] consistency at full width (kernels vs plain versions):")
     consistency_phase(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+
+    ssm = tcfg.ssm
+    log(f"[6/8] train: full-width {tcfg.name} ({tcfg.num_layers} layers, "
+        f"d_model {tcfg.d_model}, {ssm.num_heads(tcfg.d_model)} SSD heads x "
+        f"{ssm.head_dim}, state {ssm.state}, chunk {ssm.chunk}, vocab "
+        f"{tcfg.vocab_size}), f32 weights seed {SEED}, bf16 compute, f32 "
+        f"AdamW, remat=layer, {targs['batch']} x {targs['seq_len']} tokens "
+        f"in {targs['microbatches']} microbatches")
+    train = train_phase(tcfg, targs, kernels["ssd_scan"]["ms"])
+    torch.cuda.empty_cache()
+
+    log("[7/8] train consistency at full width (kernels vs plain vs f32):")
+    train_consistency_phase(tcfg, targs)
 
     launches = {name: dense["launches"][name] + paged["launches"][name]
-                for name in kernels}
+                for name in ("flash_attention", "flash_decode",
+                             "flash_decode_paged")}
+    launches["ssd_scan"] = train["launches"]["ssd_scan"]
     summary = {name: {"max_abs_err": r["max_abs_err"],
                       "launches": launches[name]}
                for name, r in kernels.items()}
-    log(f"[6/6] summary ({time.perf_counter() - t_start:.1f} s; serve "
+    log(f"[8/8] summary ({time.perf_counter() - t_start:.1f} s; serve "
         f"dense {dense['tok_s']:.1f} tok/s, paged {paged['tok_s']:.1f} "
-        "tok/s; launches summed over both serve runs)")
+        f"tok/s; train {train['tok_s']:,.0f} tok/s, {train['step_s']:.3f} "
+        f"s/step, peak {train['peak_gib']:.2f} GiB; attention launches "
+        "summed over both serve runs, ssd_scan over the kept train steps)")
     log("kernels " + json.dumps(summary))
     log(smi)
     line = {"kernels": [dict(name=name, route=r["route"], source=r["source"],

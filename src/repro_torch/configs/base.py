@@ -107,22 +107,50 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+
+INPUT_SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+# Sliding-window size used for the long_500k variant of full-attention archs.
+LONG_CONTEXT_WINDOW = 8_192
+
+
+@dataclass(frozen=True)
 class RunConfig:
     """Execution knobs of the port (the JAX package's ``RunConfig`` also
-    carries parallelism and remat knobs, which wait for later slices).
+    carries the mesh, ZeRO and sharding knobs, which wait for the
+    multi-device slice).
 
     ``use_kernels`` is the counterpart of the JAX ``use_pallas``: True
-    routes attention through ``repro_torch.kernels.ops`` (the hand-written
-    CUDA kernels on a CUDA tensor, their plain versions on a CPU tensor);
-    False runs the reference path of ``models.attention``.  The serving
-    entry points set it True."""
+    routes attention and the SSD scan through ``repro_torch.kernels.ops``
+    (the hand-written CUDA kernels on a CUDA tensor, their plain versions
+    on a CPU tensor); False runs the reference paths of
+    ``models.attention`` and ``models.ssm``.  The serving and training
+    entry points set it True.
+
+    ``microbatches`` splits a training batch for gradient accumulation;
+    ``remat`` ("none" | "layer" | "full") recomputes each layer group's
+    activations in the backward pass (``torch.utils.checkpoint``)."""
     use_kernels: bool = False
+    microbatches: int = 1
+    remat: str = "layer"
 
 
 #: architectures with a config module in the port (the JAX package has ten)
 ARCH_IDS = [
     "qwen2-7b",
     "stablelm-3b",
+    "mamba2-780m",
 ]
 
 
@@ -140,3 +168,13 @@ def get_reduced_config(arch_id: str) -> ModelConfig:
     mod = importlib.import_module(
         f"repro_torch.configs.{_module_name(arch_id)}")
     return mod.reduced()
+
+
+def shape_for(cfg: ModelConfig, shape: InputShape) -> ModelConfig:
+    """Adapt an arch config to an input shape (long-context window)."""
+    if shape.name == "long_500k" and cfg.attn_every != 0:
+        # sub-quadratic requirement: dense/hybrid archs use sliding window.
+        if cfg.sliding_window is None or \
+                cfg.sliding_window > LONG_CONTEXT_WINDOW:
+            return cfg.with_sliding_window(LONG_CONTEXT_WINDOW)
+    return cfg

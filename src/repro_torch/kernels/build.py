@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: build/kernels at the repository root (listed in .gitignore)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("flash_attention.cu", "flash_decode.cu")
+SOURCES = ("flash_attention.cu", "flash_decode.cu", "ssd_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -42,6 +42,10 @@ SIGNATURES = {
             [_c_ptr] * 5 + [_c_int] * 8 + [_c_i64] * 10 + [_c_f32, _c_ptr]),
         "repro_flash_decode_paged": (
             [_c_ptr] * 6 + [_c_int] * 8 + [_c_i64] * 11 + [_c_f32, _c_ptr]),
+    },
+    "ssd_scan": {
+        "repro_ssd_scan": (
+            [_c_ptr] * 6 + [_c_int] * 7 + [_c_i64] * 16 + [_c_ptr]),
     },
 }
 

@@ -1,7 +1,8 @@
-"""GQA attention: prefill (q-block chunked reference path or the flash
-kernel) and one-token decode over a dense, ring or paged KV cache — the
-port of the JAX package's ``models/attention.py`` for the serving path,
-without tensor parallelism.
+"""GQA attention: full-sequence training, prefill (q-block chunked
+reference path or the flash kernel) and one-token decode over a dense,
+ring or paged KV cache — the port of the JAX package's
+``models/attention.py`` for the serving and training paths, without
+tensor parallelism.
 
 ``use_kernels`` routes the attention core through
 ``repro_torch.kernels.ops`` (the CUDA kernels on the card, their plain
@@ -16,10 +17,12 @@ a new cache, and its engine donates the old one.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
@@ -107,10 +110,36 @@ def causal_attention(q, k, v, cfg: ModelConfig, q_block: int = 512):
         o = _attend_block(qg, k, v, kv_pos, kv_pos, window, scale)
         return o.reshape(B, S, H, Dh)
     assert S % q_block == 0, (S, q_block)
-    blocks = [_attend_block(qg[:, s:s + q_block], k, v,
-                            kv_pos[s:s + q_block], kv_pos, window, scale)
+    # under autograd each block is checkpointed, as the JAX scan body is:
+    # otherwise the backward keeps every block's softmax, the full (S, S)
+    # probabilities
+    attend = (functools.partial(checkpoint, _attend_block,
+                                use_reentrant=False)
+              if torch.is_grad_enabled() else _attend_block)
+    blocks = [attend(qg[:, s:s + q_block], k, v, kv_pos[s:s + q_block],
+                     kv_pos, window, scale)
               for s in range(0, S, q_block)]
     return torch.cat(blocks, dim=1).reshape(B, S, H, Dh)
+
+
+# -------------------------------------------------------------- training ----
+
+def attention_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                    use_kernels: bool = False) -> torch.Tensor:
+    """Full-sequence causal attention (training).  x: (B,S,d) -> (B,S,d).
+    ``use_kernels`` runs the flash kernel (differentiable through its
+    plain version, ``kernels.ops``); otherwise :func:`causal_attention`."""
+    S = x.shape[1]
+    q, k, v = qkv_proj(p, x, cfg)
+    if cfg.pos_embedding == "rope":
+        pos = torch.arange(S, device=x.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    if use_kernels:
+        o = kops.flash_attention(q, k, v, window=cfg.sliding_window)
+    else:
+        o = causal_attention(q, k, v, cfg)
+    return out_proj(p, o)
 
 
 # ---------------------------------------------------------------- caches ----

@@ -1,8 +1,10 @@
-"""Model assembly for the serving path: embedding -> layer groups -> LM
-head — the port of the JAX package's ``models/model.py`` for dense
-attention configs.
+"""Model assembly: embedding -> layer groups -> LM head — the port of the
+JAX package's ``models/model.py`` for training (dense attention and SSM
+configs) and for serving (dense attention configs).
 
 Entry points (plain functions of (params, inputs, cache)):
+  * ``forward_train(params, batch, cfg, run)``  -> (logits, aux)
+  * ``loss_fn(params, batch, cfg, run)``        -> (loss, metrics)
   * ``prefill(params, batch, cfg, run)``        -> (logits, cache slice)
   * ``decode_step(params, cache, token, pos, cfg, run)`` -> (logits, cache)
   * ``decode_n(params, cache, token, pos, ...)`` -> N tokens per call with
@@ -10,23 +12,29 @@ Entry points (plain functions of (params, inputs, cache)):
 
 Parameters are the JAX package's tree: layer groups stacked on dim 0 with
 period ``group_period(cfg)``; a Python loop over groups replaces
-``lax.scan``.  Decode updates the KV cache in place.  ``run.use_kernels``
-routes attention through the CUDA kernels (``kernels.ops``).
+``lax.scan``; under ``run.remat`` ("layer" or "full") each group runs
+inside ``torch.utils.checkpoint`` as the JAX scan body runs inside
+``jax.checkpoint``.  Decode updates the KV cache in place.
+``run.use_kernels`` routes attention and the SSD scan through the CUDA
+kernels (``kernels.ops``).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import attention as A
+from repro_torch.models import ssm as SSM
 from repro_torch.models.init import torch_dtype
 from repro_torch.models.mlp import mlp_apply, rmsnorm
 from repro_torch.models.spec import group_period, layer_schedule
 
 #: token emitted by finished slots inside a decode_n chunk (host drops them)
 PAD_TOKEN_ID = 0
+AUX_KEYS = ("moe_balance_loss", "moe_z_loss")
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -64,6 +72,10 @@ def build_hidden(params, batch: dict, cfg: ModelConfig):
     """Input hidden states from tokens (+ sinusoidal PE for configs that
     use it).  The modality stubs of the JAX version wait for their
     families."""
+    if cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend} frontend stub comes with the "
+            "VLM/audio slice (ROADMAP A3)")
     h = embed_tokens(params, batch["tokens"], cfg)
     if cfg.pos_embedding == "sinusoidal":
         S = h.shape[1]
@@ -75,6 +87,86 @@ def build_hidden(params, batch: dict, cfg: ModelConfig):
 def unembed(params, h, cfg: ModelConfig):
     w = params["embed"]["tok"] if cfg.tie_embeddings else params["lm_head"]["w"]
     return torch.einsum("bsd,vd->bsv", h, w.to(h.dtype))
+
+
+# -------------------------------------------------------------- training ----
+
+def _zeros_aux(device):
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in AUX_KEYS}
+
+
+def sublayer_train(p, x, mixer: str, ffn: str, cfg: ModelConfig,
+                   run: RunConfig):
+    aux = _zeros_aux(x.device)
+    h = rmsnorm(x, p["norm1"]["scale"], cfg.norm_eps)
+    if mixer == "attn":
+        h = A.attention_train(p["attn"], h, cfg, use_kernels=run.use_kernels)
+    else:
+        h = SSM.ssm_train(p["ssm"], h, cfg, use_kernels=run.use_kernels)
+    x = x + h
+    if ffn == "moe":
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers come with the MoE slice (ROADMAP A3)")
+    if ffn != "none":
+        h = rmsnorm(x, p["norm2"]["scale"], cfg.norm_eps)
+        x = x + mlp_apply(p["mlp"], h, cfg.mlp_type)
+    return x, aux
+
+
+def backbone_train(params, h, cfg: ModelConfig, run: RunConfig):
+    """The layer groups in a Python loop; returns (h, aux sums).  Under
+    ``run.remat`` in ("layer", "full") each group is recomputed in the
+    backward pass instead of keeping its activations."""
+    P = group_period(cfg)
+    sched = layer_schedule(cfg)[:P]
+
+    def group_body(x, group_params):
+        acc = _zeros_aux(x.device)
+        for i, (mixer, ffn) in enumerate(sched):
+            x, aux = sublayer_train(group_params[i], x, mixer, ffn, cfg, run)
+            acc = {k: acc[k] + aux[k] for k in AUX_KEYS}
+        return x, acc
+
+    if run.remat not in ("none", "layer", "full"):
+        raise ValueError(f"remat {run.remat!r}: none | layer | full")
+    acc = _zeros_aux(h.device)
+    for g in range(_groups(params)):
+        gp = [_take(params["layers"][i], g) for i in range(P)]
+        if run.remat == "none":
+            h, aux = group_body(h, gp)
+        else:
+            h, aux = checkpoint(group_body, h, gp, use_reentrant=False)
+        acc = {k: acc[k] + aux[k] for k in AUX_KEYS}
+    return h, acc
+
+
+def forward_train(params, batch: dict, cfg: ModelConfig, run: RunConfig):
+    h = build_hidden(params, batch, cfg)
+    h, aux = backbone_train(params, h, cfg, run)
+    h = rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)
+    return unembed(params, h, cfg), aux
+
+
+def softmax_xent(logits, labels, mask):
+    """Mean cross entropy over the tokens where ``mask`` is set, in f32
+    (the JAX one-hot sum, written as a gather)."""
+    lg = logits.to(torch.float32)
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, labels.to(torch.int64)[..., None])[..., 0]
+    per_tok = (lse - ll) * mask
+    return torch.sum(per_tok) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def loss_fn(params, batch: dict, cfg: ModelConfig, run: RunConfig):
+    logits, aux = forward_train(params, batch, cfg, run)
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(batch["labels"].shape, dtype=torch.float32,
+                          device=logits.device)
+    xent = softmax_xent(logits, batch["labels"], mask)
+    metrics = {"loss": xent, "xent": xent, **aux}
+    return xent, metrics
 
 
 # ----------------------------------------------------------------- cache ----

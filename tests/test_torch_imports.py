@@ -53,9 +53,15 @@ def test_port_imports_without_jax_repro_or_triton(tmp_path):
     want = {"repro_torch." + m.name for m in pkgutil.walk_packages(
         [str(ROOT / "src" / "repro_torch")])}
     for pkg in ("configs", "models", "kernels", "policy", "monitoring",
-                "serving", "launch"):
+                "serving", "launch", "data", "optim", "training",
+                "checkpoint"):
         assert f"repro_torch.{pkg}" in out["modules"]
     assert want <= set(out["modules"])
+    for mod in ("kernels.ssd_scan", "models.ssm", "models.inputs", "tree",
+                "data.pipeline", "optim.adamw", "training.train_step",
+                "training.trainer", "checkpoint.store", "launch.train",
+                "configs.mamba2_780m"):
+        assert f"repro_torch.{mod}" in out["modules"]
     assert not (tmp_path / "build").exists()
 
 
