@@ -1,6 +1,8 @@
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only   # build, check and time the
+                                           # attention kernels, then stop
 
 Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
 
@@ -17,14 +19,16 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
    path gives them, against its chunked plain version and the
    token-by-token oracle; time kernel, plain version and one
    library call (a yardstick the port never calls) with CUDA events,
-   the L2 cache flushed before every launch.  Then the gradients of the
-   two kernels that training differentiates (``ops.flash_attention``,
-   ``ops.ssd_scan``) against plain autograd.
+   the L2 cache flushed before every launch and the timed launches
+   queued behind a sleep kernel, so that each reading is device time.
+   Then the gradients of the two kernels that training differentiates
+   (``ops.flash_attention``, ``ops.ssd_scan``) against plain autograd.
 4. serve   — full-width stablelm-3b (random weights from a seed, bf16
    compute) through ``DecodeEngine``: a warm-up run, then the dense cache,
    then pages of 16 lines; fail if a kernel of the path never launched or
-   a request came back short.  Then a ``torch.profiler`` trace of one steady dense
-   decode chunk: its wall time against the device's busy time.
+   a request came back short.  Then a ``torch.profiler`` trace of one
+   steady dense decode chunk: its wall time against the device's busy
+   time, and ``flash_decode``'s device time per token step.
 5. consistency — one request's prefill logits and first decode steps
    through the kernels against the plain versions, at full width.
 6. train   — full-width mamba2-780m (f32 weights from a seed, bf16
@@ -41,6 +45,7 @@ Exits non-zero on any failure, and when no card is present.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
@@ -74,24 +79,78 @@ def log(*parts):
 
 # ----------------------------------------------------------------- timing ----
 
-def time_ms(fn, iters: int = 20) -> float:
-    """Median device time of one call, with the L2 cache (50 MB) flushed
-    before every call: on the serving path each layer's attention finds
-    its KV lines cold, behind the other layers' weights."""
-    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
-    fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(iters):
-        flush.zero_()
+_CYCLES_PER_MS: list = []
+
+
+def _cycles_per_ms() -> float:
+    """The card's clock as ``torch.cuda._sleep`` counts it, measured once."""
+    if not _CYCLES_PER_MS:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        _CYCLES_PER_MS.append(10_000_000 / start.elapsed_time(end))
+    return _CYCLES_PER_MS[0]
+
+
+def time_ms(fn, iters: int = 20, queued: bool = True) -> float:
+    """Median device time of one call, with the L2 cache (50 MB) flushed
+    before every call: on the serving path each layer's attention finds
+    its KV lines cold, behind the other layers' weights.
+
+    ``queued``: each (flush, start, call, end) group is enqueued behind a
+    sleep kernel that keeps the device busy until the host has enqueued
+    the whole group, so the group runs back to back and its event pair
+    holds device time only; a group whose sleep ended before it was all
+    queued is timed again behind a longer sleep.  One group at a time: a
+    plain version of many small launches would fill the device's launch
+    queue if all were queued at once.  Without ``queued`` (the method of
+    PRs 11 and 12) the device can idle between ``start`` and a call whose
+    host side is still enqueuing, and that host time lands in the
+    reading."""
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    if not queued:
+        events = []
+        for _ in range(iters):
+            flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in events)
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    sleep_ms = 0.2 + 2.0 * host_ms
+    times = []
+    while len(times) < iters:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        slept = torch.cuda.Event()
+        torch.cuda._sleep(int(sleep_ms * _cycles_per_ms()))
+        slept.record()
+        flush.zero_()
+        start.record()
         fn()
         end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
+        late = slept.query()
+        torch.cuda.synchronize()
+        if late:
+            sleep_ms *= 2
+            if sleep_ms > 1e4:
+                raise AssertionError("time_ms: the host did not enqueue "
+                                     "one call within a 10 s sleep")
+            continue
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
@@ -154,7 +213,15 @@ def kernel_phase(shape_cfg) -> dict:
     cases = [(1, n, H, K, Dh, None, bf16) for n in (32, 64, 128, cache_len)]
     cases += [(1, 100, H, K, Dh, None, f32),          # ragged S
               (2, 96, 28, 4, 128, None, bf16),        # qwen2-7b GQA
-              (1, 256, 28, 4, 128, 64, f32)]          # sliding window
+              (1, 256, 28, 4, 128, 64, f32),          # sliding window
+              # bf16 on tensor cores: S = 1, S ragged against 16 and the
+              # q tile, a head padded to 80 (72), windows, B = 2
+              (1, 1, H, K, Dh, None, bf16),
+              (1, 77, H, K, Dh, None, bf16),
+              (2, 200, 28, 4, 128, None, bf16),
+              (1, 150, 8, 2, 72, None, bf16),
+              (2, 300, 16, 4, 64, 100, bf16),
+              (1, 1000, H, K, Dh, 256, bf16)]
     for B, S, h, k, d, window, dt in cases:
         q, kk, v = (rand(gen, (B, S, n, d), dt) for n in (h, k, k))
         got = fa.flash_attention_bshd(q, kk, v, window=window)
@@ -164,12 +231,16 @@ def kernel_phase(shape_cfg) -> dict:
                     f"{str(dt)[6:]}")
         if dt == bf16 and h == H:
             errs.append(err)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True)
+
     q, kk, v = (rand(gen, (1, L, n, Dh), bf16) for n in (H, K, K))
     ms = time_ms(lambda: fa.flash_attention_bshd(q, kk, v))
     plain = time_ms(lambda: ref.attention_ref(q, kk, v))
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        q.transpose(1, 2), kk.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True))
+    lib = time_ms(lambda: sdpa(q, kk, v))
     nbytes = 2 * (2 * L * H * Dh + 2 * L * K * Dh)          # q, o, k, v
     flops = 4 * Dh * H * L * (L + 1) / 2                    # causal QK + PV
     b, by = bound_ms(nbytes, flops, bf16)
@@ -182,37 +253,63 @@ def kernel_phase(shape_cfg) -> dict:
     # the largest bucket of the serving path, for the record
     q2, k2, v2 = (rand(gen, (1, cache_len, n, Dh), bf16) for n in (H, K, K))
     n = cache_len
-    b_n = bound_ms(2 * (2 * n * H * Dh + 2 * n * K * Dh),
-                   4 * Dh * H * n * (n + 1) / 2, bf16)[0]
+    b_n, by_n = bound_ms(2 * (2 * n * H * Dh + 2 * n * K * Dh),
+                         4 * Dh * H * n * (n + 1) / 2, bf16)
     log(f"  flash_attention at L={n}: "
-        f"{time_ms(lambda: fa.flash_attention_bshd(q2, k2, v2)):.4f} ms "
-        f"(bound {b_n:.4f} ms)")
+        f"{time_ms(lambda: fa.flash_attention_bshd(q2, k2, v2)):.4f} ms, "
+        f"SDPA {time_ms(lambda: sdpa(q2, k2, v2)):.4f} ms (bound "
+        f"{b_n:.4f} ms, {by_n})")
 
     # ---- flash_decode: dense cache (and the ring) ------------------------
     errs = []
+    chunk, n_splits = fd.split_plan(cache_len, slots, K,
+                                    fd.sm_count(torch.cuda.current_device()))
+    log(f"  flash_decode split plan at ({slots}, {cache_len}) x {K} kv "
+        f"heads: {n_splits} splits of {chunk} lines, "
+        f"{n_splits * slots * K} blocks")
     positions = torch.tensor([cache_len - 1, 300, 17, 0][:slots] +
                              [cache_len // 2] * max(0, slots - 4),
                              dtype=torch.int32, device="cuda")
+    # live lengths ending on, just before and just after a split boundary,
+    # and one line: differing by more than a split
+    edges = torch.tensor(([chunk, chunk - 1, chunk + 1, 1] * slots)[:slots],
+                         dtype=torch.int32, device="cuda") - 1
+
+    def ints(*xs):
+        return torch.tensor(xs, dtype=torch.int32, device="cuda")
+
     dcases = [(slots, cache_len, H, K, Dh, None, bf16, bf16, positions),
               (slots, cache_len, H, K, Dh, None, f32, f32, positions),
               (slots, cache_len, H, K, Dh, None, f32, bf16, positions),
-              (3, 256, 28, 4, 128, None, bf16, bf16,
-               torch.tensor([255, 3, 128], dtype=torch.int32,
-                            device="cuda")),
-              (3, 64, H, K, Dh, 64, bf16, bf16,              # ring wraps
-               torch.tensor([200, 63, 5], dtype=torch.int32, device="cuda")),
-              (2, 48, 28, 4, 128, 64, f32, f32,              # window > slots
-               torch.tensor([150, 20], dtype=torch.int32, device="cuda"))]
+              (slots, cache_len, H, K, Dh, None, bf16, bf16, edges),
+              (slots, cache_len, H, K, Dh, None, f32, f32, edges),
+              (slots, cache_len, H, K, Dh, None, f32, bf16, edges),
+              (3, 256, 28, 4, 128, None, bf16, bf16, ints(255, 3, 128)),
+              (3, 64, H, K, Dh, 64, bf16, bf16, ints(200, 63, 5)),  # ring
+              (2, 48, 28, 4, 128, 64, f32, f32, ints(150, 20)),  # w > slots
+              (2, 300, 4, 2, 20, None, bf16, bf16, ints(299, 150)),  # tails
+              (2, 300, 6, 3, 6, None, f32, f32, ints(299, 40)),
+              (1, 4096, H, K, Dh, None, bf16, bf16, ints(4095)),
+              (4, 4096, H, K, Dh, None, bf16, bf16, ints(4095, 2000, 63, 0))]
     for B, S, h, k, d, window, qdt, kvdt, pos in dcases:
         q = rand(gen, (B, 1, h, d), qdt)
-        kc, vc = (rand(gen, (B, S, k, d), kvdt) for _ in range(2))
+        # a head_dim that does not fill 16 bytes sits in a padded line, so
+        # the cache's strides stay 16-byte multiples
+        width = -(-d * kvdt.itemsize // 16) * 16 // kvdt.itemsize
+        kc, vc = (rand(gen, (B, S, k, width), kvdt)[..., :d]
+                  for _ in range(2))
         got = fd.flash_decode_bshd(q, kc, vc, pos, window=window)
         want = ref.decode_attention_ref(q, kc, vc, pos, window=window)
         err = check("flash_decode", got, want, qdt,
                     f"q({B},1,{h},{d}) cache {S}x{k} w={window} "
-                    f"{str(qdt)[6:]}/{str(kvdt)[6:]}")
-        if qdt == bf16 and h == H and window is None:
+                    f"{str(qdt)[6:]}/{str(kvdt)[6:]} pos "
+                    f"{pos.tolist()[:4]}")
+        if qdt == bf16 and h == H and window is None and S == cache_len:
             errs.append(err)
+
+    def decode_bytes(B, S):
+        return 2 * (B * S * 2 * K * Dh + 2 * B * H * Dh) + 4 * B
+
     full = torch.full((slots,), cache_len - 1, dtype=torch.int32,
                       device="cuda")
     q = rand(gen, (slots, 1, H, Dh), bf16)
@@ -222,7 +319,7 @@ def kernel_phase(shape_cfg) -> dict:
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)))
     lines = slots * cache_len
-    nbytes = 2 * (lines * 2 * K * Dh + 2 * slots * H * Dh) + 4 * slots
+    nbytes = decode_bytes(slots, cache_len)
     flops = 4 * H * Dh * lines
     b, by = bound_ms(nbytes, flops, bf16)
     out["flash_decode"] = dict(
@@ -232,6 +329,18 @@ def kernel_phase(shape_cfg) -> dict:
         bound_by=by, library_ms=lib,
         shape=f"q ({slots},1,{H},{Dh}), cache ({slots},{cache_len},{K},{Dh})"
               f" bf16, all {cache_len} lines live")
+    # a long cache, for the record
+    for B4 in (1, slots):
+        q4 = rand(gen, (B4, 1, H, Dh), bf16)
+        k4, v4 = (rand(gen, (B4, 4096, K, Dh), bf16) for _ in range(2))
+        p4 = torch.full((B4,), 4095, dtype=torch.int32, device="cuda")
+        b4, by4 = bound_ms(decode_bytes(B4, 4096), 4 * H * Dh * B4 * 4096,
+                           bf16)
+        t4 = time_ms(lambda: fd.flash_decode_bshd(q4, k4, v4, p4))
+        lib4 = time_ms(lambda: F.scaled_dot_product_attention(
+            q4.transpose(1, 2), k4.transpose(1, 2), v4.transpose(1, 2)))
+        log(f"  flash_decode at ({B4},4096): {t4:.4f} ms, SDPA {lib4:.4f} "
+            f"ms (bound {b4:.4f} ms, {by4})")
 
     # ---- flash_decode_paged ----------------------------------------------
     errs = []
@@ -263,6 +372,12 @@ def kernel_phase(shape_cfg) -> dict:
     kp, vp = (rand(gen, (num_pages, ps, K, Dh), bf16) for _ in range(2))
     ms = time_ms(lambda: fd.flash_decode_paged_bshd(q, kp, vp, table_full,
                                                     full))
+    # the unchanged kernel by the method of PRs 11 and 12 as well: what
+    # the method alone moves
+    ms_old = time_ms(lambda: fd.flash_decode_paged_bshd(
+        q, kp, vp, table_full, full), queued=False)
+    log(f"  flash_decode_paged timed as in PRs 11-12 (no sleep ahead): "
+        f"{ms_old:.4f} ms; device-only: {ms:.4f} ms")
     plain = time_ms(lambda: ref.paged_decode_attention_ref(q, kp, vp,
                                                            table_full, full))
     nbytes = (2 * (lines * 2 * K * Dh + 2 * slots * H * Dh) + 4 * slots
@@ -328,6 +443,10 @@ def ssd_kernel_phase(cfg, batch: int, seq_len: int) -> dict:
     x, dt, A, a, Bm, Cm = inputs(batch, seq_len, H, P, N, bf16)
     Q = ops._pick_block(seq_len, ssm.chunk)
     ms = time_ms(lambda: ssd.ssd_scan_bshp(x, dt, a, Bm, Cm, Q))
+    ms_old = time_ms(lambda: ssd.ssd_scan_bshp(x, dt, a, Bm, Cm, Q),
+                     queued=False)
+    log(f"  ssd_scan timed as in PRs 11-12 (no sleep ahead): {ms_old:.4f} "
+        f"ms; device-only: {ms:.4f} ms")
     plain = time_ms(lambda: ref.ssd_scan_ref(x, dt, a, Bm, Cm, Q))
     tokens = batch * seq_len
     # each input of the function read once, y written once: x, y, Bm, Cm
@@ -504,6 +623,13 @@ def profile_phase(cfg, params, args, device="cuda") -> dict:
         f"{wall_ms:.2f} ms, {device_part}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
         log(f"    {us / 1e3:8.3f} ms  {name[:100]}")
+    decode = [(n, us) for n, us in by_name.items() if "decode_kernel" in n]
+    if spans:
+        us = sum(us for _, us in decode)
+        n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                and "decode_kernel" in e.name)
+        log(f"  flash_decode in the trace: {n} launches, {us / 1e3:.3f} ms = "
+            f"{us / 1e3 / chunk:.3f} ms of device time per token step")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernels": len(spans)}
 
 
@@ -773,7 +899,13 @@ def train_consistency_phase(cfg, args, device="cuda") -> dict:
 
 # ----------------------------------------------------------------- main ----
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="build, then check and time the attention "
+                        "kernels (phases 1-3 without the scan) and stop; "
+                        "prints no result line")
+    opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
                          "is_available() is False)")
@@ -804,8 +936,12 @@ def main() -> int:
                  slots=4, cache_len=512, prefill_len=128)
     log(f"[3/8] kernels vs plain versions (tolerance bf16 {TOL[torch.bfloat16]}"
         f", f32 {TOL[torch.float32]}; times: median of 20 launches, L2 "
-        "flushed):")
+        "flushed, queued behind a sleep: device time only):")
     kernels = kernel_phase(shape)
+    if opts.kernels_only:
+        log(f"kernels only: stopped after the attention kernels "
+            f"({time.perf_counter() - t_start:.1f} s)")
+        return 0
     kernels.update(ssd_kernel_phase(tcfg, targs["batch"] //
                                     targs["microbatches"], targs["seq_len"]))
     grad_phase()

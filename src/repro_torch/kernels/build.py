@@ -39,7 +39,7 @@ SIGNATURES = {
     },
     "flash_decode": {
         "repro_flash_decode": (
-            [_c_ptr] * 5 + [_c_int] * 8 + [_c_i64] * 10 + [_c_f32, _c_ptr]),
+            [_c_ptr] * 7 + [_c_int] * 9 + [_c_i64] * 10 + [_c_f32, _c_ptr]),
         "repro_flash_decode_paged": (
             [_c_ptr] * 6 + [_c_int] * 8 + [_c_i64] * 11 + [_c_f32, _c_ptr]),
     },
@@ -129,3 +129,19 @@ def check(err: int, what: str):
     """Raise on a non-zero CUDA error code returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def check_aligned(what: str, name: str, t) -> None:
+    """Raise unless ``t``'s base pointer and the strides of its axes other
+    than the last (those of length > 1) are multiples of 16 bytes, as the
+    kernels' 16-byte copies need."""
+    size = t.element_size()
+    strides = [st * size for st, n in zip(t.stride()[:-1], t.shape[:-1])
+               if n > 1]
+    if t.data_ptr() % 16 or any(st % 16 for st in strides):
+        raise ValueError(
+            f"{what}: {name} must be 16-byte aligned for the kernel's "
+            f"16-byte loads: base pointer and the strides of every axis but "
+            f"head_dim in multiples of 16 bytes; got base % 16 = "
+            f"{t.data_ptr() % 16}, strides {tuple(t.stride())} of {size}-byte "
+            "elements")

@@ -3,10 +3,11 @@
 
 Replaces the TPU kernel ``flash_attention_bhsd`` of the JAX package
 (``repro/kernels/flash_attention.py``).  On the card it is bound by
-operations at prefill lengths (the source note says which rate); its
-design — one block per (batch, q head, 64-row q tile), looping over kv
-tiles only up to the causal / window limit, f32 online softmax on chip —
-is described in the source.  The kernel reads the model layout
+operations at prefill lengths.  One block owns one (batch, q head, q
+tile) and loops over kv tiles only up to the causal / window limit, with
+an f32 online softmax on chip: in bfloat16 both products run on tensor
+cores (``mma.sync``) from 16-byte copies, in float32 on plain FMAs; the
+source describes both.  The kernel reads the model layout
 ``(B, S, H, Dh)`` through strides, so no transpose is materialised.
 
 This module never imports at load time anything that needs ``nvcc``: the
@@ -54,6 +55,23 @@ def _check(q, k, v):
                          f"{K} kv heads")
     if not 1 <= Dh <= 128:
         raise ValueError(f"flash_attention: head_dim {Dh} outside 1..128")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            build.check_aligned("flash_attention", name, t)
+
+
+def attention_args(q, k, v, o, window, stream):
+    """The argument list of ``repro_flash_attention``
+    (``build.SIGNATURES``) for the tensors of a call."""
+    B, S, H, Dh = q.shape
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")],
+            B, S, H, k.shape[2], Dh, int(window or 0),
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            o.stride(0), o.stride(1), o.stride(2),
+            Dh ** -0.5, stream)
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -61,25 +79,17 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Causal (optionally sliding-window) attention on the card.
 
     q: (B, S, H, Dh); k/v: (B, S, K, Dh) with H % K == 0; float32 or
-    bfloat16; any strides with a unit last stride.  Returns a new
+    bfloat16; any strides with a unit last stride (in bfloat16, base
+    pointers and strides in multiples of 16 bytes).  Returns a new
     contiguous (B, S, H, Dh) tensor of q's dtype, f32 softmax inside."""
     global launches
     _check(q, k, v)
-    B, S, H, Dh = q.shape
-    K = k.shape[2]
-    o = torch.empty((B, S, H, Dh), dtype=q.dtype, device=q.device)
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lib = build.library("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")],
-            B, S, H, K, Dh, int(window or 0),
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            o.stride(0), o.stride(1), o.stride(2),
-            Dh ** -0.5, stream)
+        err = lib.repro_flash_attention(*attention_args(q, k, v, o, window,
+                                                        stream))
     build.check(err, "flash_attention")
     launches += 1
     return o
