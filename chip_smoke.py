@@ -1,8 +1,8 @@
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels-only   # build, check and time the
-                                           # attention kernels, then stop
+    python3 chip_smoke.py --kernels-only   # build, check and time every
+                                           # kernel, then stop
 
 Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
 
@@ -14,10 +14,11 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
    card, at the serving path's shapes (full-width stablelm-3b), a GQA
    shape at qwen2-7b widths, a ring-window case and a paged case with
    null pages, in bf16 and f32; the SSD scan at the training path's
-   shape (full-width mamba2-780m), the JAX package's ``SSD_CASES`` and a
-   chunk that ``_pick_block`` shrinks, on inputs strided as the training
-   path gives them, against its chunked plain version and the
-   token-by-token oracle; time kernel, plain version and one
+   shape (full-width mamba2-780m), the JAX package's ``SSD_CASES``, a
+   chunk that ``_pick_block`` shrinks and a chunk whose decays span the
+   f32 range, on inputs strided as the training path gives them, against
+   its chunked plain version and the token-by-token oracle; time kernel,
+   plain version and one
    library call (a yardstick the port never calls) with CUDA events,
    the L2 cache flushed before every launch and the timed launches
    queued behind a sleep kernel, so that each reading is device time.
@@ -27,8 +28,9 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
    compute) through ``DecodeEngine``: a warm-up run, then the dense cache,
    then pages of 16 lines; fail if a kernel of the path never launched or
    a request came back short.  Then a ``torch.profiler`` trace of one
-   steady dense decode chunk: its wall time against the device's busy
-   time, and ``flash_decode``'s device time per token step.
+   steady decode chunk, dense and paged: its wall time against the
+   device's busy time, and the decode kernel's device time per token
+   step.
 5. consistency — one request's prefill logits and first decode steps
    through the kernels against the plain versions, at full width.
 6. train   — full-width mamba2-780m (f32 weights from a seed, bf16
@@ -95,36 +97,21 @@ def _cycles_per_ms() -> float:
     return _CYCLES_PER_MS[0]
 
 
-def time_ms(fn, iters: int = 20, queued: bool = True) -> float:
+def time_ms(fn, iters: int = 20) -> float:
     """Median device time of one call, with the L2 cache (50 MB) flushed
     before every call: on the serving path each layer's attention finds
     its KV lines cold, behind the other layers' weights.
 
-    ``queued``: each (flush, start, call, end) group is enqueued behind a
-    sleep kernel that keeps the device busy until the host has enqueued
-    the whole group, so the group runs back to back and its event pair
-    holds device time only; a group whose sleep ended before it was all
-    queued is timed again behind a longer sleep.  One group at a time: a
-    plain version of many small launches would fill the device's launch
-    queue if all were queued at once.  Without ``queued`` (the method of
-    PRs 11 and 12) the device can idle between ``start`` and a call whose
-    host side is still enqueuing, and that host time lands in the
-    reading."""
+    Each (flush, start, call, end) group is enqueued behind a sleep kernel
+    that keeps the device busy until the host has enqueued the whole
+    group, so the group runs back to back and its event pair holds device
+    time only; a group whose sleep ended before it was all queued is timed
+    again behind a longer sleep.  One group at a time: a plain version of
+    many small launches would fill the device's launch queue if all were
+    queued at once."""
     flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
-    if not queued:
-        events = []
-        for _ in range(iters):
-            flush.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            events.append((start, end))
-        torch.cuda.synchronize()
-        return statistics.median(s.elapsed_time(e) for s, e in events)
     t0 = time.perf_counter()
     fn()
     host_ms = (time.perf_counter() - t0) * 1e3
@@ -372,12 +359,11 @@ def kernel_phase(shape_cfg) -> dict:
     kp, vp = (rand(gen, (num_pages, ps, K, Dh), bf16) for _ in range(2))
     ms = time_ms(lambda: fd.flash_decode_paged_bshd(q, kp, vp, table_full,
                                                     full))
-    # the unchanged kernel by the method of PRs 11 and 12 as well: what
-    # the method alone moves
-    ms_old = time_ms(lambda: fd.flash_decode_paged_bshd(
-        q, kp, vp, table_full, full), queued=False)
-    log(f"  flash_decode_paged timed as in PRs 11-12 (no sleep ahead): "
-        f"{ms_old:.4f} ms; device-only: {ms:.4f} ms")
+    chunk_p, n_p = fd.split_plan(n_tab * ps, slots, K,
+                                 fd.sm_count(torch.cuda.current_device()))
+    log(f"  flash_decode_paged: {n_p} splits of {chunk_p} lines; {ms:.4f} ms "
+        f"= {ms / out['flash_decode']['ms']:.2f}x the dense kernel at the "
+        "same shape")
     plain = time_ms(lambda: ref.paged_decode_attention_ref(q, kp, vp,
                                                            table_full, full))
     nbytes = (2 * (lines * 2 * K * Dh + 2 * slots * H * Dh) + 4 * slots
@@ -412,7 +398,7 @@ def ssd_kernel_phase(cfg, batch: int, seq_len: int) -> dict:
     H, P, N = ssm.num_heads(cfg.d_model), ssm.head_dim, ssm.state
     bf16, f32 = torch.bfloat16, torch.float32
 
-    def inputs(B, S, h, p, n, dtype):
+    def inputs(B, S, h, p, n, dtype, fixed=None):
         # x, Bm and Cm as ``ssm_train`` hands them over: slices of one
         # (B, S, h*p + 2n) conv output, so x's S stride is h*p + 2n
         u = rand(gen, (B, S, h * p + 2 * n), dtype)
@@ -421,19 +407,28 @@ def ssd_kernel_phase(cfg, batch: int, seq_len: int) -> dict:
         dt = torch.rand((B, S, h), generator=gen, device="cuda") * 0.099 \
             + 1e-3
         A = -(torch.rand((h,), generator=gen, device="cuda") * 3.5 + 0.5)
+        if fixed is not None:             # (A, dt) for every head and token
+            A = torch.full_like(A, fixed[0])
+            dt = torch.full_like(dt, fixed[1])
         return x, dt, A, dt * A, Bm, Cm
 
+    log(f"  ssd_scan: {ssd.KERNEL_LAUNCHES} kernel launches per call")
     errs = []
-    cases = [(batch, seq_len, H, P, N, ssm.chunk),       # the training shape
-             (2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 32, 64),
-             (2, 64, 1, 16, 8, 64), (1, 96, 3, 32, 128, 32),   # SSD_CASES
-             (1, 96, 2, 64, 128, 64)]                   # chunk 64 -> 48
-    for B, S, h, p, n, chunk in cases:
+    cases = [(batch, seq_len, H, P, N, ssm.chunk, None),  # the training shape
+             (2, 128, 4, 32, 16, 32, None), (1, 256, 2, 64, 32, 64, None),
+             (2, 64, 1, 16, 8, 64, None),
+             (1, 96, 3, 32, 128, 32, None),                # SSD_CASES
+             (1, 96, 2, 64, 128, 64, None),                # chunk 64 -> 48
+             # decays spanning the f32 range: cs reaches -102 in a chunk,
+             # so the hi + lo terms carry factors from 1 down to ~1e-44
+             (1, 512, 4, P, N, ssm.chunk, (-4.0, 0.1))]
+    for B, S, h, p, n, chunk, fixed in cases:
         Q = ops._pick_block(S, chunk)
         for dt_ in (bf16, f32):
-            x, dt, A, a, Bm, Cm = inputs(B, S, h, p, n, dt_)
+            x, dt, A, a, Bm, Cm = inputs(B, S, h, p, n, dt_, fixed)
             got = ssd.ssd_scan_bshp(x, dt, a, Bm, Cm, Q)
-            what = f"x({B},{S},{h},{p}) N {n} Q {Q} {str(dt_)[6:]}"
+            what = (f"x({B},{S},{h},{p}) N {n} Q {Q} {str(dt_)[6:]}"
+                    + (f" A {fixed[0]:g} dt {fixed[1]:g}" if fixed else ""))
             err = check("ssd_scan", got, ref.ssd_scan_ref(x, dt, a, Bm, Cm, Q),
                         dt_, what + " vs chunked", relative=True)
             check("ssd_scan", got, ref.ssd_ref(x, dt, A, Bm, Cm), dt_,
@@ -443,10 +438,6 @@ def ssd_kernel_phase(cfg, batch: int, seq_len: int) -> dict:
     x, dt, A, a, Bm, Cm = inputs(batch, seq_len, H, P, N, bf16)
     Q = ops._pick_block(seq_len, ssm.chunk)
     ms = time_ms(lambda: ssd.ssd_scan_bshp(x, dt, a, Bm, Cm, Q))
-    ms_old = time_ms(lambda: ssd.ssd_scan_bshp(x, dt, a, Bm, Cm, Q),
-                     queued=False)
-    log(f"  ssd_scan timed as in PRs 11-12 (no sleep ahead): {ms_old:.4f} "
-        f"ms; device-only: {ms:.4f} ms")
     plain = time_ms(lambda: ref.ssd_scan_ref(x, dt, a, Bm, Cm, Q))
     tokens = batch * seq_len
     # each input of the function read once, y written once: x, y, Bm, Cm
@@ -466,8 +457,10 @@ def ssd_kernel_phase(cfg, batch: int, seq_len: int) -> dict:
              bound_by=by, library_ms=None,
              shape=f"x ({batch},{seq_len},{H},{P}), N {N}, Q {Q} bf16 "
                    f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-    log(f"  {'ssd_scan':<19} {r['shape']}: kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, library n/a ms, bound {b:.4f} ms ({by})")
+    log(f"  {'ssd_scan':<19} {r['shape']}: kernel {ms:.4f} ms "
+        f"({ssd.KERNEL_LAUNCHES} launches), plain {plain:.4f} ms "
+        f"({plain / ms:.1f}x the kernel), library n/a ms, bound {b:.4f} ms "
+        f"({by})")
     return {"ssd_scan": r}
 
 
@@ -572,11 +565,14 @@ def serve_phase(cfg, params, paged: bool, args, device="cuda",
     return {"launches": launches, "tok_s": total / wall, "wall_s": wall}
 
 
-def profile_phase(cfg, params, args, device="cuda") -> dict:
-    """Where one steady decode chunk of the dense engine spends its time:
-    a ``torch.profiler`` trace of one ``engine.step()`` (every slot live,
-    nothing to admit), its wall time on the host clock (ending in a
-    synchronize) against the union of the device's kernel intervals."""
+def profile_phase(cfg, params, args, paged: bool,
+                  device="cuda") -> dict:
+    """Where one steady decode chunk of the engine (dense cache, or pages
+    of 16 lines) spends its time: a ``torch.profiler`` trace of one
+    ``engine.step()`` (every slot live, nothing to admit), its wall time on
+    the host clock (ending in a synchronize) against the union of the
+    device's kernel intervals, and the decode kernel's device time per
+    token step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -587,7 +583,9 @@ def profile_phase(cfg, params, args, device="cuda") -> dict:
     engine = DecodeEngine(cfg, params, num_slots=args["slots"],
                           cache_len=args["cache_len"], seed=SEED,
                           decode_chunk=chunk, prefill_buckets="auto",
-                          device=device)
+                          kv_page_size=16 if paged else 0, device=device)
+    kind = "paged" if paged else "dense"
+    kernel = "flash_decode_paged" if paged else "flash_decode"
     for rid in range(args["slots"]):
         engine.submit(Request(
             rid=rid, prompt=rng.integers(2, cfg.vocab_size, 100).astype(
@@ -618,19 +616,25 @@ def profile_phase(cfg, params, args, device="cuda") -> dict:
         f"{len(spans)} device kernels ({len(spans) / chunk:.0f} per token "
         "step)" if spans else
         "device time not measured (the trace holds no device events)")
-    log(f"  profile: one dense decode chunk ({chunk} tokens x "
+    log(f"  profile: one {kind} decode chunk ({chunk} tokens x "
         f"{args['slots']} slots, ~{int(engine.pos.mean())} live lines): wall "
         f"{wall_ms:.2f} ms, {device_part}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
         log(f"    {us / 1e3:8.3f} ms  {name[:100]}")
+    # one engine uses one of the two decode launches: every decode kernel
+    # in this trace is `kernel`
     decode = [(n, us) for n, us in by_name.items() if "decode_kernel" in n]
+    step_ms = None
     if spans:
         us = sum(us for _, us in decode)
         n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
                 and "decode_kernel" in e.name)
-        log(f"  flash_decode in the trace: {n} launches, {us / 1e3:.3f} ms = "
-            f"{us / 1e3 / chunk:.3f} ms of device time per token step")
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernels": len(spans)}
+        step_ms = us / 1e3 / chunk
+        log(f"  {kernel} in the trace: {n} launches, {us / 1e3:.3f} ms = "
+            f"{step_ms:.3f} ms of device time per token step; device busy "
+            f"{busy_ms / chunk:.3f} ms per token step")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernels": len(spans),
+            "decode_ms_per_step": step_ms}
 
 
 def consistency_phase(cfg, params, device="cuda") -> dict:
@@ -902,9 +906,9 @@ def train_consistency_phase(cfg, args, device="cuda") -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
-                        help="build, then check and time the attention "
-                        "kernels (phases 1-3 without the scan) and stop; "
-                        "prints no result line")
+                        help="build, then check and time every kernel "
+                        "(phases 1-3 without the gradient checks) and "
+                        "stop; prints no result line")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -938,12 +942,12 @@ def main(argv=None) -> int:
         f", f32 {TOL[torch.float32]}; times: median of 20 launches, L2 "
         "flushed, queued behind a sleep: device time only):")
     kernels = kernel_phase(shape)
-    if opts.kernels_only:
-        log(f"kernels only: stopped after the attention kernels "
-            f"({time.perf_counter() - t_start:.1f} s)")
-        return 0
     kernels.update(ssd_kernel_phase(tcfg, targs["batch"] //
                                     targs["microbatches"], targs["seq_len"]))
+    if opts.kernels_only:
+        log(f"kernels only: stopped after the kernels' checks and times "
+            f"({time.perf_counter() - t_start:.1f} s)")
+        return 0
     grad_phase()
 
     log(f"[4/8] serve: full-width {cfg.name} ({cfg.num_layers} layers, "
@@ -961,7 +965,8 @@ def main(argv=None) -> int:
     serve_phase(cfg, params, False, args, label="warm-up (dense, not kept)")
     dense = serve_phase(cfg, params, False, args)
     paged = serve_phase(cfg, params, True, args)
-    profile_phase(cfg, params, args)
+    profiles = {kind: profile_phase(cfg, params, args, kind == "paged")
+                for kind in ("dense", "paged")}
 
     log("[5/8] consistency at full width (kernels vs plain versions):")
     consistency_phase(cfg, params)
@@ -990,9 +995,12 @@ def main(argv=None) -> int:
                for name, r in kernels.items()}
     log(f"[8/8] summary ({time.perf_counter() - t_start:.1f} s; serve "
         f"dense {dense['tok_s']:.1f} tok/s, paged {paged['tok_s']:.1f} "
-        f"tok/s; train {train['tok_s']:,.0f} tok/s, {train['step_s']:.3f} "
-        f"s/step, peak {train['peak_gib']:.2f} GiB; attention launches "
-        "summed over both serve runs, ssd_scan over the kept train steps)")
+        f"tok/s; decode kernel per token step dense "
+        f"{profiles['dense']['decode_ms_per_step']} ms, paged "
+        f"{profiles['paged']['decode_ms_per_step']} ms; train "
+        f"{train['tok_s']:,.0f} tok/s, {train['step_s']:.3f} s/step, peak "
+        f"{train['peak_gib']:.2f} GiB; attention launches summed over both "
+        "serve runs, ssd_scan over the kept train steps)")
     log("kernels " + json.dumps(summary))
     log(smi)
     line = {"kernels": [dict(name=name, route=r["route"], source=r["source"],

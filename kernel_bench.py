@@ -8,6 +8,12 @@ flushed before each, queued behind a sleep: device time only).
                                              # unpacked with git archive
     python3 kernel_bench.py --sweep-splits   # the dense decode kernel at
                                              # several split lengths
+    python3 kernel_bench.py --trace          # device time of each launch
+                                             # inside one call, by kernel
+    python3 kernel_bench.py --profile        # one traced decode chunk of
+                                             # full-width stablelm-3b, dense
+                                             # and paged (chip_smoke's
+                                             # profile step)
 
 To compare two trees, run them in turns in one process tree on one card
 (parent, change, change, parent).  Each tree builds its own kernels into
@@ -26,12 +32,19 @@ import torch
 import torch.nn.functional as F
 
 HERE = Path(__file__).resolve().parent
-#: (sequences, cache lines) of the dense decode cases, all lines live
+#: (sequences, cache lines) of the decode cases, all lines live; each runs
+#: on a dense cache and on a pool of 16-line pages
 DECODE_SHAPES = ((4, 512), (1, 4096), (4, 4096))
+PAGE = 16
 
 
 def decode_shape(B: int, S: int) -> str:
     return f"q ({B},1,32,80) cache ({B},{S},32,80)"
+
+
+def paged_shape(B: int, S: int) -> str:
+    return (f"q ({B},1,32,80) pool ({B * S // PAGE + 1},{PAGE},32,80) "
+            f"table {B}x{S // PAGE}")
 
 
 def cases(fa, fd, ssd, gen):
@@ -61,20 +74,26 @@ def cases(fa, fd, ssd, gen):
                     lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                         q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2))))
-    q = rand((4, 1, 32, 80))
-    kp, vp = (rand((129, 16, 32, 80)) for _ in range(2))
-    table = (torch.randperm(128, generator=gen, device="cuda") + 1).reshape(
-        4, 32).to(torch.int32)
-    pos = torch.full((4,), 511, dtype=torch.int32, device="cuda")
-    out.append(("flash_decode_paged", "q (4,1,32,80) pool (129,16,32,80)",
-                lambda: fd.flash_decode_paged_bshd(q, kp, vp, table, pos)))
-    x = rand((2, 2048, 48, 64))
-    dt = torch.rand((2, 2048, 48), generator=gen, device="cuda") * 0.099 \
-        + 1e-3
-    a = dt * -(torch.rand((48,), generator=gen, device="cuda") * 3.5 + 0.5)
-    Bm, Cm = (rand((2, 2048, 128)) for _ in range(2))
-    out.append(("ssd_scan", "x (2,2048,48,64) N 128 Q 256",
-                lambda: ssd.ssd_scan_bshp(x, dt, a, Bm, Cm, 256)))
+        n_tab = S // PAGE
+        kp, vp = (rand((B * n_tab + 1, PAGE, 32, 80)) for _ in range(2))
+        table = (torch.randperm(B * n_tab, generator=gen, device="cuda")
+                 + 1).reshape(B, n_tab).to(torch.int32)
+        out.append(("flash_decode_paged", paged_shape(B, S),
+                    lambda q=q, k=kp, v=vp, t=table, p=pos:
+                    fd.flash_decode_paged_bshd(q, k, v, t, p)))
+    for B in (2, 1):
+        # the training shape (one microbatch of 2 x 2048 tokens) and one
+        # sequence, x/Bm/Cm strided as ``ssm_train`` slices them
+        u = rand((B, 2048, 48 * 64 + 2 * 128))
+        x = u[..., :48 * 64].reshape(B, 2048, 48, 64)
+        Bm, Cm = u[..., 48 * 64:48 * 64 + 128], u[..., 48 * 64 + 128:]
+        dt = torch.rand((B, 2048, 48), generator=gen, device="cuda") \
+            * 0.099 + 1e-3
+        a = dt * -(torch.rand((48,), generator=gen, device="cuda") * 3.5
+                   + 0.5)
+        out.append(("ssd_scan", f"x ({B},2048,48,64) N 128 Q 256 strided",
+                    lambda x=x, dt=dt, a=a, Bm=Bm, Cm=Cm: ssd.ssd_scan_bshp(
+                        x, dt, a, Bm, Cm, 256)))
     return out
 
 
@@ -85,6 +104,18 @@ def main(argv=None) -> int:
     parser.add_argument("--sweep-splits", action="store_true",
                         help="time the dense decode kernel at split "
                         "lengths 32-1024 instead")
+    parser.add_argument("--trace", action="store_true",
+                        help="instead, trace 10 calls of each case with "
+                        "torch.profiler (L2 flushed before each) and print "
+                        "each kernel's mean device time per call")
+    parser.add_argument("--profile", action="store_true",
+                        help="instead, trace one steady decode chunk of "
+                        "full-width stablelm-3b (random weights), dense and "
+                        "paged, and print the decode kernel's device time "
+                        "per token step")
+    parser.add_argument("--only", default=None,
+                        help="time only the cases of this kernel (e.g. "
+                        "ssd_scan)")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_bench: no CUDA device")
@@ -110,6 +141,24 @@ def main(argv=None) -> int:
         print(json.dumps({"src": str(src), "kernel": kernel, "shape": shape,
                           "ms": ms}), flush=True)
 
+    if opts.profile:
+        from chip_smoke import SEED, profile_phase
+        from repro_torch.configs import get_config
+        from repro_torch.models import init_params
+        from repro_torch.serving.engine import cast_for_compute
+
+        cfg = get_config("stablelm-3b")
+        params = cast_for_compute(init_params(cfg, SEED, "cuda"),
+                                  torch.bfloat16)
+        args = dict(slots=4, cache_len=512, decode_chunk=8)
+        for paged in (False, True):
+            r = profile_phase(cfg, params, args, paged)
+            kind = "paged" if paged else "dense"
+            step = f"decode chunk, {kind}, per token step"
+            emit("flash_decode_paged" if paged else "flash_decode", step,
+                 r["decode_ms_per_step"])
+            emit("device_busy", step, r["busy_ms"] / args["decode_chunk"])
+        return 0
     if opts.sweep_splits:
         plan = fd.split_plan
         decode = [fn for kernel, _, fn in cases(fa, fd, ssd, gen)
@@ -126,8 +175,44 @@ def main(argv=None) -> int:
                  f"{plan(S, B, 32, fd.sm_count(0))}", time_ms(fn))
         return 0
     for kernel, shape, fn in cases(fa, fd, ssd, gen):
-        emit(kernel, shape, time_ms(fn))
+        if opts.only and kernel != opts.only:
+            continue
+        if opts.trace:
+            for name, ms in trace_ms(fn).items():
+                emit(kernel, f"{shape} | {name}", ms)
+        else:
+            emit(kernel, shape, time_ms(fn))
     return 0
+
+
+def trace_ms(fn, calls: int = 10) -> dict:
+    """Mean device time per call of each kernel that ``fn`` launches, from
+    a ``torch.profiler`` trace of ``calls`` calls, each behind an L2 flush
+    (the flush's own kernel is left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    flushes = calls
+    out: dict = {}
+    for e in sorted(prof.events(), key=lambda e: e.time_range.start):
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if flushes and "fill" in e.name.lower():
+            flushes -= 1
+            continue
+        name = e.name.replace("(anonymous namespace)", "").split("(")[0]
+        name = name[-60:]
+        out[name] = out.get(name, 0.0) + (e.time_range.end
+                                          - e.time_range.start) / 1e3
+    return {name: ms / calls for name, ms in out.items()}
 
 
 if __name__ == "__main__":

@@ -41,11 +41,11 @@ SIGNATURES = {
         "repro_flash_decode": (
             [_c_ptr] * 7 + [_c_int] * 9 + [_c_i64] * 10 + [_c_f32, _c_ptr]),
         "repro_flash_decode_paged": (
-            [_c_ptr] * 6 + [_c_int] * 8 + [_c_i64] * 11 + [_c_f32, _c_ptr]),
+            [_c_ptr] * 8 + [_c_int] * 9 + [_c_i64] * 11 + [_c_f32, _c_ptr]),
     },
     "ssd_scan": {
         "repro_ssd_scan": (
-            [_c_ptr] * 6 + [_c_int] * 7 + [_c_i64] * 16 + [_c_ptr]),
+            [_c_ptr] * 10 + [_c_int] * 7 + [_c_i64] * 16 + [_c_ptr]),
     },
 }
 

@@ -1,58 +1,58 @@
 // Single-query GQA decode attention for Hopper, sm_90a: a dense KV cache
-// (with the sliding-window ring mode) and a paged KV pool.
+// (with the sliding-window ring mode) and a paged KV pool, one kernel body
+// for both.
 //
 // Replaces the TPU kernels `flash_decode_bkgd` (body `_decode_kernel`) and
 // `flash_decode_paged_bkgd` (body `_paged_decode_kernel`) of
 // src/repro/kernels/flash_decode.py: one query per sequence against its
 // live KV lines, all G query heads of a kv group served from each K/V line
 // loaded, the ring mask `slot_pos = pos - ((pos - i) mod S)` under a
-// window, and, for the pool, logical page `pi` resolved through
-// `page_table[b, pi]` with the null page never attended.
+// window, and, for the pool, logical line j resolved through
+// `page_table[b, j / page_size]`.
 //
 // What bounds it on the card: bytes.  Each live K/V line is read once and
 // used for 2*G*Dh flops per tensor, far below the ~295 flops per byte the
 // H100 needs before its compute is the limit.
 //
-// Dense cache (`split_decode_kernel`): split-KV, as the TPU kernel was.
-// The grid is (splits, kv heads, sequences); one block of 4 warps owns a
-// run of `chunk` cache lines of one (sequence, kv head).  The split length
-// comes from shapes only (kernels/flash_decode.py::split_plan, aiming at
-// ~4 blocks per SM: a decode step of 4 sequences x 32 kv heads over 512
-// lines runs 512 blocks where one block per (sequence, kv head) ran 128);
-// a block whose run lies wholly past min(pos_b + 1, slots) exits without
-// reading anything and is left out of the combine.  A block copies its
-// lines in 32-line tiles with 16-byte `cp.async` (8 bf16 or 4 f32 a copy,
-// a scalar tail where Dh does not fill 16 bytes) into a double-buffered
-// shared tile, so the next tile is in flight while this one is scored.
-// Four lanes score one line for all G heads of the group (each lane a
-// quarter of the 16-byte pieces of the line, then two shuffles), a warp
-// per head runs the f32 online softmax over the tile, and each thread
-// accumulates P.V for (head, dim) pairs.  The block then writes its f32
-// partial (unnormalised o, running max m, sum l) to scratch the wrapper
-// allocated; the last block of a (sequence, kv head) to finish, told by
-// an atomic counter after a `__threadfence`, combines the partials as the
-// JAX wrapper does (rescale to the global max, divide by the summed l, 1
-// where that sum is 0), writes o and resets the counter.  One launch a
-// call, nothing allocated by the kernel, nothing read back by the host:
-// the counters are zeroed once by the wrapper and left at zero by every
-// launch, so the launch can sit inside a CUDA graph.  A sequence with a
-// single live split writes o directly.  Two other layouts measured no
-// faster on the H100 (PERF.md): lanes that each keep their own lines'
-// softmax and P.V in registers, merged once per block or once per warp.
-//
-// Paged pool (`flash_decode_kernel<..., true>`, the first design): one
-// block to each (sequence, kv head) walks that sequence's live lines in
-// 32-line tiles with 2-byte scalar loads, reading its own page-table
-// entry per line (there is no scalar prefetch on the card).  Moving it to
-// the split design is the next step; its code is kept as it was.
+// Split-KV (`split_decode_kernel<TQ, TKV, kPaged>`), as the TPU kernels
+// were.  The grid is (splits, kv heads, sequences); one block of 4 warps
+// owns a run of `chunk` lines of one (sequence, kv head).  The split length
+// comes from shapes only (kernels/flash_decode.py::split_plan over the
+// cache's slots, or the table's n_pages * page_size lines, aiming at ~4
+// blocks per SM: a decode step of 4 sequences x 32 kv heads over 512 lines
+// runs 512 blocks where one block per (sequence, kv head) ran 128); a
+// block whose run lies wholly past min(pos_b + 1, lines) exits without
+// reading anything and is left out of the combine.  The two layouts differ
+// only in where line j of sequence b lives: the dense cache at (b, j), the
+// pool at (page_table[b, j / page_size], j % page_size).  A paged block
+// first reads the table entries of its run into shared memory (there is no
+// scalar prefetch on the card), so each line's page is resolved from there;
+// lines past pos_b, hence the null page (0) that tables hold past it, are
+// never read.  A block copies its lines in 32-line tiles with 16-byte
+// `cp.async` (8 bf16 or 4 f32 a copy, a scalar tail where Dh does not fill
+// 16 bytes) into a double-buffered shared tile, so the next tile is in
+// flight while this one is scored.  Four lanes score one line for all G
+// heads of the group (each lane a quarter of the 16-byte pieces of the
+// line, then two shuffles), a warp per head runs the f32 online softmax
+// over the tile, and each thread accumulates P.V for (head, dim) pairs.
+// The block then writes its f32 partial (unnormalised o, running max m,
+// sum l) to scratch the wrapper allocated; the last block of a (sequence,
+// kv head) to finish, told by an atomic counter after a `__threadfence`,
+// combines the partials as the JAX wrapper does (rescale to the global
+// max, divide by the summed l, 1 where that sum is 0), writes o and resets
+// the counter.  One launch a call, nothing allocated by the kernel,
+// nothing read back by the host: the counters are zeroed once by the
+// wrapper and left at zero by every launch, so the launch can sit inside a
+// CUDA graph.  A sequence with a single live split writes o directly.  Two
+// other layouts measured no faster on the H100 (PERF.md): lanes that each
+// keep their own lines' softmax and P.V in registers, merged once per
+// block or once per warp.
 
 #include "common.cuh"
 
 namespace repro {
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 32;               // kv lines per tile (= warp size)
 
 struct DecodeArgs {
@@ -73,16 +73,13 @@ struct DecodeArgs {
   long long v_s0, v_s1, v_sh;           // offset), then kv head
   long long o_sb, o_sh;                 // o (B, 1, H, Dh)
   float scale;
-  // dense split-KV only
-  int chunk;                            // cache lines per split
+  int chunk;                            // lines per split
   float* part;                          // f32 partials: o (B, K, splits,
                                         // G, Dh), then m and l (B, K,
                                         // splits, 2, G)
   int* counter;                         // (B, K) finished splits, zero at
                                         // rest
 };
-
-// ------------------------------------------------ dense cache, split-KV ----
 
 constexpr int kSplitThreads = 128;
 constexpr int kSplitWarps = kSplitThreads / 32;
@@ -96,14 +93,21 @@ __host__ __device__ inline int padded_dh(int Dh, int elem_bytes) {
   return (Dh + per - 1) / per * per;
 }
 
-size_t split_smem_bytes(int G, int Dh, int kv_bytes) {
+// Table entries a run of `chunk` lines can touch: its first line may sit
+// anywhere in a page.
+__host__ __device__ inline int run_pages(int chunk, int page_size) {
+  return (chunk + page_size - 1) / page_size + 1;
+}
+
+size_t split_smem_bytes(int G, int Dh, int kv_bytes, int n_pages) {
   const size_t dpad = padded_dh(Dh, kv_bytes);
   return 2 * 2 * kTile * dpad * kv_bytes          // K, V tiles, 2 stages
          + sizeof(float) * (G * dpad              // Qs
                             + G * kTile           // Ps
                             + static_cast<size_t>(G) * Dh  // Acc
                             + 3 * G)              // Ms, Ls, Alpha
-         + 16;                                    // the last-block flag
+         + 16                                     // the last-block flag
+         + sizeof(int) * static_cast<size_t>(n_pages);  // Pg (paged)
 }
 
 // 16 bytes of shared memory as f32: 8 bf16 or 4 f32.
@@ -128,7 +132,7 @@ __device__ __forceinline__ void load16_f32(const float* p, float (&x)[4]) {
   x[3] = u.w;
 }
 
-template <typename TQ, typename TKV>
+template <typename TQ, typename TKV, bool kPaged>
 __global__ void __launch_bounds__(kSplitThreads)
     split_decode_kernel(DecodeArgs a) {
   constexpr int kPer = 16 / static_cast<int>(sizeof(TKV));  // per piece
@@ -148,6 +152,7 @@ __global__ void __launch_bounds__(kSplitThreads)
   float* Ls = Ms + G;                   // [G]
   float* Alpha = Ls + G;                // [G]
   int* last = reinterpret_cast<int*>(Alpha + G);
+  int* Pg = last + 4;                   // [run_pages] the run's pages
 
   const int split = blockIdx.x;
   const int kh = blockIdx.y;
@@ -165,10 +170,36 @@ __global__ void __launch_bounds__(kSplitThreads)
   }
   const int j_begin = split * a.chunk;
   const int j_end = min(j_begin + a.chunk, n_lines);
-  const TKV* kbase =
-      static_cast<const TKV*>(a.k) + b * a.k_s0 + kh * a.k_sh;
-  const TKV* vbase =
-      static_cast<const TKV*>(a.v) + b * a.v_s0 + kh * a.v_sh;
+  const TKV* kbase = static_cast<const TKV*>(a.k) + kh * a.k_sh;
+  const TKV* vbase = static_cast<const TKV*>(a.v) + kh * a.v_sh;
+  int pg0 = 0;
+  if (kPaged) {
+    // the table entries of this run's live lines, once
+    pg0 = j_begin / a.page_size;
+    const int* pt = a.page_table + b * a.pt_stride;
+    const int n_pg =
+        j_end > j_begin ? (j_end - 1) / a.page_size - pg0 + 1 : 0;
+    for (int i = tid; i < n_pg; i += kSplitThreads) {
+      Pg[i] = pt[pg0 + i];
+    }
+    __syncthreads();
+  } else {
+    kbase += b * a.k_s0;
+    vbase += b * a.v_s0;
+  }
+  // element offset of line j from kbase (k) and vbase (v)
+  auto line = [&](int j, long long& ko, long long& vo) {
+    if (kPaged) {
+      const int pi = j / a.page_size;
+      const long long page = Pg[pi - pg0];
+      const int off = j - pi * a.page_size;
+      ko = page * a.k_s0 + off * a.k_s1;
+      vo = page * a.v_s0 + off * a.v_s1;
+    } else {
+      ko = j * a.k_s1;
+      vo = j * a.v_s1;
+    }
+  };
 
   // lines [j0, j0 + nl) into stage `st`: whole pieces by cp.async, the
   // tail of a line that does not fill 16 bytes by scalar loads (zeros up
@@ -180,8 +211,10 @@ __global__ void __launch_bounds__(kSplitThreads)
     for (int i = tid; i < nl * n_full; i += kSplitThreads) {
       const int r = i / n_full;
       const int c = (i - r * n_full) * kPer;
-      cp_async_16(kd + r * dpad + c, kbase + (j0 + r) * a.k_s1 + c);
-      cp_async_16(vd + r * dpad + c, vbase + (j0 + r) * a.v_s1 + c);
+      long long ko, vo;
+      line(j0 + r, ko, vo);
+      cp_async_16(kd + r * dpad + c, kbase + ko + c);
+      cp_async_16(vd + r * dpad + c, vbase + vo + c);
     }
     const int tail = dpad - n_full * kPer;
     for (int i = tid; i < nl * tail; i += kSplitThreads) {
@@ -189,8 +222,10 @@ __global__ void __launch_bounds__(kSplitThreads)
       const int d = n_full * kPer + (i - r * tail);
       const bool in = d < Dh;
       const TKV zero = from_f32<TKV>(0.f);
-      kd[r * dpad + d] = in ? kbase[(j0 + r) * a.k_s1 + d] : zero;
-      vd[r * dpad + d] = in ? vbase[(j0 + r) * a.v_s1 + d] : zero;
+      long long ko, vo;
+      line(j0 + r, ko, vo);
+      kd[r * dpad + d] = in ? kbase[ko + d] : zero;
+      vd[r * dpad + d] = in ? vbase[vo + d] : zero;
     }
   };
 
@@ -245,7 +280,7 @@ __global__ void __launch_bounds__(kSplitThreads)
       }
       const int j = j0 + r;
       bool valid = r < nl;
-      if (a.window > 0) {
+      if (!kPaged && a.window > 0) {
         // ring: slot j holds the latest position congruent to it
         const int slot_pos =
             pos - (((pos - j) % a.slots) + a.slots) % a.slots;
@@ -371,194 +406,18 @@ __global__ void __launch_bounds__(kSplitThreads)
   }
 }
 
-template <typename TQ, typename TKV>
+template <typename TQ, typename TKV, bool kPaged>
 cudaError_t launch_split_typed(const DecodeArgs& a, int B, int K,
                                int n_splits, cudaStream_t stream) {
-  const size_t smem = split_smem_bytes(a.G, a.Dh, sizeof(TKV));
-  cudaError_t err = allow_smem(split_decode_kernel<TQ, TKV>, smem);
+  const size_t smem = split_smem_bytes(
+      a.G, a.Dh, sizeof(TKV), kPaged ? run_pages(a.chunk, a.page_size) : 0);
+  cudaError_t err = allow_smem(split_decode_kernel<TQ, TKV, kPaged>, smem);
   if (err != cudaSuccess) {
     return err;
   }
   const dim3 grid(n_splits, K, B);
-  split_decode_kernel<TQ, TKV><<<grid, kSplitThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_split(const DecodeArgs& a, int q_dtype, int kv_dtype,
-                         int B, int K, int n_splits, cudaStream_t stream) {
-  if (q_dtype == kFloat32 && kv_dtype == kFloat32) {
-    return launch_split_typed<float, float>(a, B, K, n_splits, stream);
-  }
-  if (q_dtype == kBFloat16 && kv_dtype == kBFloat16) {
-    return launch_split_typed<__nv_bfloat16, __nv_bfloat16>(a, B, K,
-                                                           n_splits, stream);
-  }
-  if (q_dtype == kFloat32 && kv_dtype == kBFloat16) {
-    return launch_split_typed<float, __nv_bfloat16>(a, B, K, n_splits,
-                                                    stream);
-  }
-  return cudaErrorInvalidValue;
-}
-
-// -------------------------------------------- paged pool, first design ----
-
-size_t decode_smem_bytes(int G, int Dh) {
-  return sizeof(float) *
-         (static_cast<size_t>(G) * Dh     // Qs
-          + kTile * (Dh + 1)              // Ks
-          + kTile * Dh                    // Vs
-          + G * kTile                     // Ps
-          + G * Dh                        // Acc
-          + 3 * G);                       // Ms, Ls, Alpha
-}
-
-template <typename TQ, typename TKV, bool kPaged>
-__global__ void __launch_bounds__(kThreads)
-    flash_decode_kernel(DecodeArgs a) {
-  static_assert(kTile == 32, "the softmax step maps one line per lane");
-  extern __shared__ float smem[];
-  const int G = a.G;
-  const int Dh = a.Dh;
-  const int ldk = Dh + 1;
-  float* Qs = smem;                     // [G][Dh]
-  float* Ks = Qs + G * Dh;              // [kTile][Dh + 1]
-  float* Vs = Ks + kTile * ldk;         // [kTile][Dh]
-  float* Ps = Vs + kTile * Dh;          // [G][kTile]
-  float* Acc = Ps + G * kTile;          // [G][Dh]
-  float* Ms = Acc + G * Dh;             // [G]
-  float* Ls = Ms + G;                   // [G]
-  float* Alpha = Ls + G;                // [G]
-
-  const int kh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int pos = a.pos[b];
-  const int n_lines = max(0, min(pos + 1, a.slots));
-
-  const TQ* q = static_cast<const TQ*>(a.q) + b * a.q_sb +
-                static_cast<long long>(kh) * G * a.q_sh;
-  for (int i = tid; i < G * Dh; i += kThreads) {
-    const int g = i / Dh;
-    const int d = i - g * Dh;
-    Qs[i] = to_f32(q[g * a.q_sh + d]);
-    Acc[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += kThreads) {
-    Ms[g] = kNegInf;
-    Ls[g] = 0.f;
-  }
-  const TKV* kbase = static_cast<const TKV*>(a.k) + kh * a.k_sh;
-  const TKV* vbase = static_cast<const TKV*>(a.v) + kh * a.v_sh;
-  const int* pt = kPaged ? a.page_table + b * a.pt_stride : nullptr;
-
-  for (int j0 = 0; j0 < n_lines; j0 += kTile) {
-    __syncthreads();                    // init done / last tile consumed
-    for (int i = tid; i < kTile * Dh; i += kThreads) {
-      const int r = i / Dh;
-      const int d = i - r * Dh;
-      const int j = j0 + r;
-      float kx = 0.f;
-      float vx = 0.f;
-      if (j < n_lines) {
-        long long ko;
-        long long vo;
-        if (kPaged) {
-          const int pi = j / a.page_size;
-          const long long page = pt[pi];
-          const int off = j - pi * a.page_size;
-          ko = page * a.k_s0 + off * a.k_s1;
-          vo = page * a.v_s0 + off * a.v_s1;
-        } else {
-          ko = b * a.k_s0 + j * a.k_s1;
-          vo = b * a.v_s0 + j * a.v_s1;
-        }
-        kx = to_f32(kbase[ko + d]);
-        vx = to_f32(vbase[vo + d]);
-      }
-      Ks[r * ldk + d] = kx;
-      Vs[i] = vx;
-    }
-    __syncthreads();
-
-    // scores, masked to kNegInf: one (head, line) pair per thread
-    for (int i = tid; i < G * kTile; i += kThreads) {
-      const int g = i / kTile;
-      const int r = i - g * kTile;
-      const int j = j0 + r;
-      bool valid = j < n_lines;
-      if (!kPaged && a.window > 0) {
-        // ring: slot j holds the latest position congruent to it
-        const int slot_pos = pos - (((pos - j) % a.slots) + a.slots) % a.slots;
-        valid = valid && slot_pos >= 0 && (pos - slot_pos) < a.window;
-      }
-      float s = kNegInf;
-      if (valid) {
-        const float* qr = Qs + g * Dh;
-        const float* kr = Ks + r * ldk;
-        float dot = 0.f;
-        for (int d = 0; d < Dh; ++d) {
-          dot = fmaf(qr[d], kr[d], dot);
-        }
-        s = dot * a.scale;
-      }
-      Ps[i] = s;
-    }
-    __syncthreads();
-
-    // online softmax: warp w updates heads w, w + kWarps, ...
-    for (int g = warp; g < G; g += kWarps) {
-      const float s = Ps[g * kTile + lane];
-      const bool valid = s > 0.5f * kNegInf;
-      const float m_old = Ms[g];
-      const float m_new = fmaxf(m_old, warp_max(s));
-      const float p = valid ? expf(s - m_new) : 0.f;
-      const float alpha = expf(m_old - m_new);
-      const float lsum = warp_sum(p);
-      Ps[g * kTile + lane] = p;
-      if (lane == 0) {
-        Ms[g] = m_new;
-        Ls[g] = Ls[g] * alpha + lsum;
-        Alpha[g] = alpha;
-      }
-    }
-    __syncthreads();
-
-    for (int i = tid; i < G * Dh; i += kThreads) {
-      const int g = i / Dh;
-      const int d = i - g * Dh;
-      const float* pr = Ps + g * kTile;
-      float x = Acc[i] * Alpha[g];
-#pragma unroll 8
-      for (int r = 0; r < kTile; ++r) {
-        x = fmaf(pr[r], Vs[r * Dh + d], x);
-      }
-      Acc[i] = x;
-    }
-  }
-  __syncthreads();
-
-  TQ* o = static_cast<TQ*>(a.o) + b * a.o_sb +
-          static_cast<long long>(kh) * G * a.o_sh;
-  for (int i = tid; i < G * Dh; i += kThreads) {
-    const int g = i / Dh;
-    const int d = i - g * Dh;
-    const float den = Ls[g] == 0.f ? 1.f : Ls[g];
-    o[g * a.o_sh + d] = from_f32<TQ>(Acc[i] / den);
-  }
-}
-
-template <typename TQ, typename TKV, bool kPaged>
-cudaError_t launch_typed(const DecodeArgs& a, int B, int K,
-                         cudaStream_t stream) {
-  const size_t smem = decode_smem_bytes(a.G, a.Dh);
-  cudaError_t err = allow_smem(flash_decode_kernel<TQ, TKV, kPaged>, smem);
-  if (err != cudaSuccess) {
-    return err;
-  }
-  const dim3 grid(K, B);
-  flash_decode_kernel<TQ, TKV, kPaged><<<grid, kThreads, smem, stream>>>(a);
+  split_decode_kernel<TQ, TKV, kPaged>
+      <<<grid, kSplitThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -566,17 +425,19 @@ cudaError_t launch_typed(const DecodeArgs& a, int B, int K,
 // float32-query / bfloat16-cache pair is what an f32 model over the
 // engine's bf16 cache dispatches.
 template <bool kPaged>
-cudaError_t launch(const DecodeArgs& a, int q_dtype, int kv_dtype, int B,
-                   int K, cudaStream_t stream) {
+cudaError_t launch_split(const DecodeArgs& a, int q_dtype, int kv_dtype,
+                         int B, int K, int n_splits, cudaStream_t stream) {
   if (q_dtype == kFloat32 && kv_dtype == kFloat32) {
-    return launch_typed<float, float, kPaged>(a, B, K, stream);
+    return launch_split_typed<float, float, kPaged>(a, B, K, n_splits,
+                                                    stream);
   }
   if (q_dtype == kBFloat16 && kv_dtype == kBFloat16) {
-    return launch_typed<__nv_bfloat16, __nv_bfloat16, kPaged>(a, B, K,
-                                                             stream);
+    return launch_split_typed<__nv_bfloat16, __nv_bfloat16, kPaged>(
+        a, B, K, n_splits, stream);
   }
   if (q_dtype == kFloat32 && kv_dtype == kBFloat16) {
-    return launch_typed<float, __nv_bfloat16, kPaged>(a, B, K, stream);
+    return launch_split_typed<float, __nv_bfloat16, kPaged>(a, B, K,
+                                                            n_splits, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -631,22 +492,26 @@ extern "C" int repro_flash_decode(
   a.part = static_cast<float*>(part);
   a.counter = static_cast<int*>(counter);
   const int n_splits = (slots + chunk - 1) / chunk;
-  return static_cast<int>(launch_split(a, q_dtype, kv_dtype, B, K, n_splits,
-                                       static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_split<false>(
+      a, q_dtype, kv_dtype, B, K, n_splits,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // Paged pool.  q: (B, 1, H, Dh); k/v: (num_pages, page_size, K, Dh) read
-// through strides (page, offset, kv head); page_table: (B, n_pages) int32
-// with row stride pt_stride; pos: (B,) int32.
+// through strides (page, offset, kv head), 16-byte aligned (base and
+// strides); page_table: (B, n_pages) int32 with row stride pt_stride; pos:
+// (B,) int32.  The table's n_pages * page_size logical lines are cut into
+// splits of `chunk` lines; part and counter as for the dense cache.
 extern "C" int repro_flash_decode_paged(
     const void* q, const void* k, const void* v, void* o, const int* pos,
-    const int* page_table, int q_dtype, int kv_dtype, int B, int H, int K,
-    int Dh, int n_pages, int page_size, long long pt_stride, long long q_sb,
-    long long q_sh, long long k_sp, long long k_so, long long k_sh,
-    long long v_sp, long long v_so, long long v_sh, long long o_sb,
-    long long o_sh, float scale, void* stream) {
+    const int* page_table, void* part, void* counter, int q_dtype,
+    int kv_dtype, int B, int H, int K, int Dh, int n_pages, int page_size,
+    int chunk, long long pt_stride, long long q_sb, long long q_sh,
+    long long k_sp, long long k_so, long long k_sh, long long v_sp,
+    long long v_so, long long v_sh, long long o_sb, long long o_sh,
+    float scale, void* stream) {
   using namespace repro;
-  if (bad_shape(B, H, K, Dh) || n_pages < 1 || page_size < 1) {
+  if (bad_shape(B, H, K, Dh) || n_pages < 1 || page_size < 1 || chunk < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   DecodeArgs a = {};
@@ -673,6 +538,11 @@ extern "C" int repro_flash_decode_paged(
   a.o_sb = o_sb;
   a.o_sh = o_sh;
   a.scale = scale;
-  return static_cast<int>(launch<true>(a, q_dtype, kv_dtype, B, K,
-                                       static_cast<cudaStream_t>(stream)));
+  a.chunk = chunk;
+  a.part = static_cast<float*>(part);
+  a.counter = static_cast<int*>(counter);
+  const int n_splits = (a.slots + chunk - 1) / chunk;
+  return static_cast<int>(launch_split<true>(
+      a, q_dtype, kv_dtype, B, K, n_splits,
+      static_cast<cudaStream_t>(stream)));
 }

@@ -1,14 +1,18 @@
-"""Wrapper of the CUDA Mamba-2 SSD chunked-scan kernel
+"""Wrapper of the CUDA Mamba-2 SSD chunked-scan kernels
 (``csrc/ssd_scan.cu``).
 
 Replaces the TPU kernel ``ssd_scan_bhsp`` of the JAX package
 (``repro/kernels/ssd_scan.py``).  At the training shape its bound is set
-by bytes (the source note gives the arithmetic); its design — one block
-per (batch, head, 64-column P tile) looping over the chunks with the f32
-state on chip, the chunk cut into 64-row q and k tiles, decays taken only
-at or below the diagonal — is described in the source.  The kernel reads
-the model layouts ``x (B, S, H, P)``, ``dt``/``a (B, S, H)`` and
-``Bm``/``Cm (B, S, N)`` through strides, so no transpose is materialised.
+by bytes (the source note gives the arithmetic).  Its design is the
+chunk-parallel form of the SSD algorithm: one call makes
+:data:`KERNEL_LAUNCHES` launches — C.B^T once per (batch, chunk), each
+chunk's own final state (and the cumsum of ``a``), a short pass over the
+chunks for the state entering each, then every chunk's output — with the
+bf16 products on the tensor cores, the inputs exact and every f32 factor
+split into two bf16 terms on the other side of the product.  The kernels
+read the model layouts ``x (B, S, H, P)``, ``dt``/``a (B, S, H)`` and
+``Bm``/``Cm (B, S, N)`` through strides, so no transpose is
+materialised; the wrapper allocates their f32 scratch.
 
 Forward only, as the TPU kernel was: ``kernels.ops.ssd_scan`` wraps it in
 an autograd function whose backward recomputes the plain version.  The
@@ -20,12 +24,14 @@ import torch
 
 from repro_torch.kernels import build
 
-#: kernel launches since the last reset (incremented only where the
-#: kernel is launched)
+#: wrapper calls that launched the kernels since the last reset
+#: (incremented only where they are launched)
 launches = 0
+#: kernel launches one call makes (csrc/ssd_scan.cu)
+KERNEL_LAUNCHES = 4
 
 _DTYPES = (torch.float32, torch.bfloat16)
-#: the state patch of a thread covers at most 128 state rows
+#: a warp's accumulators cover at most 128 state columns
 MAX_STATE = 128
 MAX_CHUNK = 4096
 
@@ -65,26 +71,28 @@ def _check(x, dt, a, Bm, Cm, chunk):
                          f"lie in 1..{MAX_CHUNK}")
 
 
-def ssd_scan_bshp(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-                  Bm: torch.Tensor, Cm: torch.Tensor,
-                  chunk: int) -> torch.Tensor:
-    """The SSD chunked scan on the card.
+def scratch(x: torch.Tensor, N: int, chunk: int) -> tuple:
+    """The kernels' f32 scratch for a call on ``x``: cs (B, nc, H, 2, Q),
+    the cumsum of ``a`` per chunk and a compact copy of ``dt``; cb (B, nc,
+    Q, Q), C.B^T per chunk; ds (B, nc, H, P, N), each chunk's own state;
+    sin, the same size, the state entering each chunk (for bf16 ``x`` as
+    its hi and lo bf16 terms)."""
+    B, S, H, P = x.shape
+    nc = S // chunk
+    return tuple(torch.empty(shape, dtype=torch.float32, device=x.device)
+                 for shape in ((B, nc, H, 2, chunk), (B, nc, chunk, chunk),
+                               (B, nc, H, P, N), (B, nc, H, P, N)))
 
-    x: (B, S, H, P) and Bm/Cm: (B, S, N), float32 or bfloat16 (one dtype),
-    unit stride on the last axis; dt and a = dt * A: (B, S, H) float32, any
-    strides; S % chunk == 0.  Returns a new contiguous (B, S, H, P) tensor
-    of x's dtype; the state and every sum inside are f32."""
-    global launches
-    _check(x, dt, a, Bm, Cm, chunk)
+
+def scan_args(x, dt, a, Bm, Cm, y, cs, cb, ds, sin, chunk, stream):
+    """The argument list of ``repro_ssd_scan`` (``build.SIGNATURES``) for
+    the tensors of a call; cs, cb, ds and sin as :func:`scratch` makes
+    them."""
     B, S, H, P = x.shape
     N = Bm.shape[2]
-    y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
-    lib = build.library("ssd_scan")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.repro_ssd_scan(
-            x.data_ptr(), dt.data_ptr(), a.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), y.data_ptr(),
+    return (x.data_ptr(), dt.data_ptr(), a.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), y.data_ptr(), cs.data_ptr(), cb.data_ptr(),
+            ds.data_ptr(), sin.data_ptr(),
             build.DTYPE_CODES[str(x.dtype).removeprefix("torch.")],
             B, S, H, P, N, chunk,
             x.stride(0), x.stride(1), x.stride(2),
@@ -94,6 +102,28 @@ def ssd_scan_bshp(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             Cm.stride(0), Cm.stride(1),
             y.stride(0), y.stride(1), y.stride(2),
             stream)
+
+
+def ssd_scan_bshp(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                  Bm: torch.Tensor, Cm: torch.Tensor,
+                  chunk: int) -> torch.Tensor:
+    """The SSD chunked scan on the card: :data:`KERNEL_LAUNCHES` kernel
+    launches on the current stream, counted as one call in
+    :data:`launches`.
+
+    x: (B, S, H, P) and Bm/Cm: (B, S, N), float32 or bfloat16 (one dtype),
+    unit stride on the last axis; dt and a = dt * A: (B, S, H) float32, any
+    strides; S % chunk == 0.  Returns a new contiguous (B, S, H, P) tensor
+    of x's dtype; the state and every sum inside are f32."""
+    global launches
+    _check(x, dt, a, Bm, Cm, chunk)
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    lib = build.library("ssd_scan")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.repro_ssd_scan(*scan_args(
+            x, dt, a, Bm, Cm, y, *scratch(x, Bm.shape[2], chunk), chunk,
+            stream))
     build.check(err, "ssd_scan")
     launches += 1
     return y

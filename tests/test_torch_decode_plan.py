@@ -1,4 +1,4 @@
-"""The dense decode kernel's split plan (``flash_decode.split_plan``) and
+"""The decode kernel's split plan (``flash_decode.split_plan``) and
 the wrappers' refusals of what the 16-byte-copy kernels do not take, on
 the CPU: no card, no build."""
 import pytest
@@ -96,6 +96,29 @@ def test_decode_refuses_misaligned_caches(make, what):
     before = tops.launch_counts()
     with pytest.raises(ValueError, match="16-byte aligned") as err:
         tfd.flash_decode_bshd(q, kc, vc, pos)
+    assert what.replace("\\", "") in str(err.value)
+    assert tops.launch_counts() == before
+
+
+@pytest.mark.parametrize("make,what", [
+    (lambda: torch.zeros(9, 16, 4, 81, dtype=torch.bfloat16)[..., 1:],
+     "base % 16 = 2"),
+    (lambda: torch.zeros(9, 16, 4, 20, dtype=torch.bfloat16),
+     "strides \\(1280, 80, 20, 1\\)"),
+], ids=["base", "bf16-dh20"])
+def test_paged_decode_refuses_misaligned_pools(make, what):
+    """The paged launch copies pool lines with 16-byte copies as the dense
+    one does, so it refuses the same layouts, before any build or launch
+    count."""
+    pool = make()
+    K, Dh = pool.shape[2], pool.shape[3]
+    q = _FakeCuda(torch.zeros(2, 1, 2 * K, Dh, dtype=pool.dtype))
+    kp = _FakeCuda(pool)
+    table = _FakeCuda(torch.ones(2, 4, dtype=torch.int32))
+    pos = _FakeCuda(torch.zeros(2, dtype=torch.int32))
+    before = tops.launch_counts()
+    with pytest.raises(ValueError, match="16-byte aligned") as err:
+        tfd.flash_decode_paged_bshd(q, kp, kp, table, pos)
     assert what.replace("\\", "") in str(err.value)
     assert tops.launch_counts() == before
 
