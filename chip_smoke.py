@@ -31,17 +31,28 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
    steady decode chunk, dense and paged: its wall time against the
    device's busy time, and the decode kernel's device time per token
    step.
-5. consistency — one request's prefill logits and first decode steps
-   through the kernels against the plain versions, at full width.
-6. train   — full-width mamba2-780m (f32 weights from a seed, bf16
+5. serve modes — the same model through the engine's serving modes, each
+   on its own requests: the prefix cache (a shared 64-token system
+   prompt), token-budgeted chunked prefill (64 tokens), speculation with
+   the n-gram and the draft-model sources; fail on a short request, a
+   kernel of the run's path that never launched, no prefix hit, no more
+   chunks than requests, or no verify round.  Then the device time of
+   each plain attention routine these modes add (suffix prefill, prefill
+   chunk, verify).
+6. consistency — one request's prefill logits and first decode steps
+   through the kernels against the plain versions, at full width; then
+   the serve modes' greedy outputs against the classic paged engine's,
+   in f32 with the depth cut to 4 layers, token for token (a difference
+   passes only where the classic run's top-2 logit gap is below 1e-4).
+7. train   — full-width mamba2-780m (f32 weights from a seed, bf16
    compute, f32 AdamW state, layer recomputation) through ``Trainer``:
    2 x 2048-token microbatches a step, one warm-up step, then 4 steps;
    fail on a non-finite loss, a first loss far from ln(vocab), or an
    ``ssd_scan`` launch count other than the run implies.
-7. train consistency — loss and gradients of one full-width microbatch
+8. train consistency — loss and gradients of one full-width microbatch
    through the kernels and the plain versions, in f32 (held close) and in
    bf16 (held to the f32 run), with the bf16 gap's parameters listed.
-8. summary — the kernels line, then the device line last.
+9. summary — the kernels line, then the device line last.
 
 Exits non-zero on any failure, and when no card is present.
 """
@@ -208,7 +219,11 @@ def kernel_phase(shape_cfg) -> dict:
               (2, 200, 28, 4, 128, None, bf16),
               (1, 150, 8, 2, 72, None, bf16),
               (2, 300, 16, 4, 64, 100, bf16),
-              (1, 1000, H, K, Dh, 256, bf16)]
+              (1, 1000, H, K, Dh, 256, bf16),
+              # the speculative draft model's prefill (1 layer, 2 heads of
+              # 32): buckets of 8 to cache_len tokens
+              (1, 32, 2, 2, 32, None, bf16), (1, 64, 2, 2, 32, None, f32),
+              (1, cache_len, 2, 2, 32, None, bf16)]
     for B, S, h, k, d, window, dt in cases:
         q, kk, v = (rand(gen, (B, S, n, d), dt) for n in (h, k, k))
         got = fa.flash_attention_bshd(q, kk, v, window=window)
@@ -277,7 +292,13 @@ def kernel_phase(shape_cfg) -> dict:
               (2, 300, 4, 2, 20, None, bf16, bf16, ints(299, 150)),  # tails
               (2, 300, 6, 3, 6, None, f32, f32, ints(299, 40)),
               (1, 4096, H, K, Dh, None, bf16, bf16, ints(4095)),
-              (4, 4096, H, K, Dh, None, bf16, bf16, ints(4095, 2000, 63, 0))]
+              (4, 4096, H, K, Dh, None, bf16, bf16, ints(4095, 2000, 63, 0)),
+              # the draft model's own dense cache: H = K = 2, Dh 32, every
+              # slot's row; bf16 compute, and f32 compute over the bf16
+              # cache (the f32 serve runs) and over an f32 one
+              (slots, cache_len, 2, 2, 32, None, bf16, bf16, positions),
+              (slots, cache_len, 2, 2, 32, None, f32, bf16, positions),
+              (slots, cache_len, 2, 2, 32, None, f32, f32, edges)]
     for B, S, h, k, d, window, qdt, kvdt, pos in dcases:
         q = rand(gen, (B, 1, h, d), qdt)
         # a head_dim that does not fill 16 bytes sits in a padded line, so
@@ -504,11 +525,11 @@ def grad_phase():
 
 # -------------------------------------------------------------- serving ----
 
-def serve_phase(cfg, params, paged: bool, args, device="cuda",
-                label=None) -> dict:
-    from repro_torch.kernels import ops
-    from repro_torch.monitoring import MetricsRegistry
-    from repro_torch.serving import DecodeEngine, Request
+def serve_requests(cfg, args, greedy=False) -> list:
+    """The serve phase's requests: ``args["requests"]`` prompts of 4 to
+    cache_len/4 tokens from the seed, greedy and temperature 0.8 in turn
+    (all greedy with ``greedy``)."""
+    from repro_torch.serving import Request
 
     rng = np.random.default_rng(SEED)
     requests = []
@@ -517,7 +538,18 @@ def serve_phase(cfg, params, paged: bool, args, device="cuda",
         prompt = rng.integers(2, cfg.vocab_size, plen).astype(np.int32)
         requests.append(Request(rid=rid, prompt=prompt,
                                 max_new_tokens=args["max_new"],
-                                temperature=float(rid % 2) * 0.8))
+                                temperature=0.0 if greedy
+                                else float(rid % 2) * 0.8))
+    return requests
+
+
+def serve_phase(cfg, params, paged: bool, args, device="cuda",
+                label=None) -> dict:
+    from repro_torch.kernels import ops
+    from repro_torch.monitoring import MetricsRegistry
+    from repro_torch.serving import DecodeEngine
+
+    requests = serve_requests(cfg, args)
     metrics = MetricsRegistry()
     engine = DecodeEngine(cfg, params, num_slots=args["slots"],
                           cache_len=args["cache_len"], metrics=metrics,
@@ -563,6 +595,267 @@ def serve_phase(cfg, params, paged: bool, args, device="cuda",
             raise AssertionError(f"{kind}: kernel {name} never launched on "
                                  "the serving path")
     return {"launches": launches, "tok_s": total / wall, "wall_s": wall}
+
+
+# ---------------------------------------------------------- serve modes ----
+
+#: the engine's serving modes the serve-modes phase drives, each on its own
+#: request set ("prefix": 8 prompts behind a shared 64-token system prompt;
+#: "serve": the serve phase's requests; "repeat": 8 prompts of a repeated
+#: 8-token pattern, greedy)
+SERVE_MODES = (
+    ("prefix cache", "prefix", dict(prefix_cache=True)),
+    ("budgeted, 64 tokens", "serve", dict(max_batch_tokens=64)),
+    ("speculation, n-gram", "repeat", dict(speculate=4)),
+    ("speculation, model", "repeat",
+     dict(speculate=4, spec_source="model")),
+)
+
+
+def mode_requests(cfg, kind: str, args, greedy=False) -> list:
+    from repro_torch.serving import Request
+
+    if kind == "serve":
+        return serve_requests(cfg, args, greedy=greedy)
+    rng = np.random.default_rng(SEED + 6)
+    requests = []
+    if kind == "prefix":
+        system = rng.integers(2, cfg.vocab_size, 64).astype(np.int32)
+        for rid in range(args["requests"]):
+            tail = rng.integers(2, cfg.vocab_size,
+                                int(rng.integers(4, 64))).astype(np.int32)
+            requests.append(Request(
+                rid=rid, prompt=np.concatenate([system, tail]),
+                max_new_tokens=args["max_new"],
+                temperature=0.0 if greedy else float(rid % 2) * 0.8))
+    else:
+        for rid in range(args["requests"]):
+            pattern = rng.integers(2, cfg.vocab_size, 8).astype(np.int32)
+            requests.append(Request(
+                rid=rid, prompt=np.tile(pattern, 3 + rid % 4),
+                max_new_tokens=args["max_new"]))
+    return requests
+
+
+def f32_lines(engine):
+    """Swap the engine's empty bf16 KV pools for f32 ones.  Both packages
+    hold bf16 lines whatever the compute dtype, so in f32 a suffix or
+    chunk prefill reads the prefix rounded where a whole-prompt prefill
+    attends its own f32 K/V: a different function.  f32 lines make every
+    mode compute the classic engine's function, for the identity check."""
+    engine.cache = {"layers": [{n: t.float() for n, t in layer.items()}
+                               for layer in engine.cache["layers"]]}
+
+
+def run_mode(cfg, params, args, kind: str, options: dict, greedy=False,
+             device="cuda") -> dict:
+    """One engine (paged, 16-line pages, the serve phase's slots, cache
+    and decode chunk) with ``options`` on its request set, the launch
+    counts set to 0 just before and read just after.  With ``greedy``
+    (the identity check) the KV lines are f32 (:func:`f32_lines`)."""
+    from repro_torch.kernels import ops
+    from repro_torch.monitoring import MetricsRegistry
+    from repro_torch.monitoring.metrics import (
+        METRIC_SERVE_PREFIX_HITS, METRIC_SERVE_PREFIX_REUSED_TOKENS,
+    )
+    from repro_torch.serving import DecodeEngine
+
+    requests = mode_requests(cfg, kind, args, greedy=greedy)
+    metrics = MetricsRegistry()
+    engine = DecodeEngine(cfg, params, num_slots=args["slots"],
+                          cache_len=args["cache_len"], metrics=metrics,
+                          seed=SEED, decode_chunk=args["decode_chunk"],
+                          prefill_buckets="auto", kv_page_size=16,
+                          device=device, **options)
+    if greedy:
+        f32_lines(engine)
+    for r in requests:
+        engine.submit(r)
+    sync(device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    engine.run_to_completion()
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    total = int(metrics.counter("serve_tokens_generated").value())
+    pre = metrics.histogram("serve_prefill_seconds")
+    dec = metrics.histogram("serve_decode_seconds")
+    st = engine.spec_stats
+    return {"requests": requests, "launches": launches, "wall_s": wall,
+            "tokens": total, "tok_s": total / wall,
+            "prefill_ms": pre.sum() / max(pre.count(), 1) * 1e3,
+            "prefills": pre.count(),
+            "decode_ms": dec.sum() / max(dec.count(), 1) * 1e3,
+            "calls": dec.count(),
+            "hits": int(metrics.counter(METRIC_SERVE_PREFIX_HITS).value()),
+            "reused": int(metrics.counter(
+                METRIC_SERVE_PREFIX_REUSED_TOKENS).value()),
+            "chunks": engine.serve_stats["prefill_chunks"],
+            "rounds": st["rounds"], "proposed": st["proposed"],
+            "accepted": st["accepted"],
+            "outputs": [list(r.output) for r in requests]}
+
+
+def serve_modes_phase(cfg, params, args, device="cuda") -> dict:
+    """The engine's serving modes at full width: the prefix cache, the
+    token-budgeted chunked prefill, and speculation from both draft
+    sources.  Gates: every request finishes with its token count in the
+    vocabulary; the kernels of each run's path launched; prefix hits,
+    more chunks than requests, and verify rounds where the mode has
+    them."""
+    out = {}
+    for label, kind, options in SERVE_MODES:
+        r = run_mode(cfg, params, args, kind, options, device=device)
+        reqs = r["requests"]
+        want = sum(q.max_new_tokens - 1 for q in reqs)
+        rate = (f"{r['accepted'] / r['proposed']:.1%}" if r["proposed"]
+                else "n/a")
+        log(f"  {label}: {len(reqs)} requests, {r['tokens']} decode tokens "
+            f"in {r['wall_s']:.3f} s = {r['tok_s']:.1f} tok/s; prefill "
+            f"mean {r['prefill_ms']:.2f} ms over {r['prefills']}; decode "
+            f"or verify call mean {r['decode_ms']:.2f} ms over "
+            f"{r['calls']}; prefix hits {r['hits']}, reused tokens "
+            f"{r['reused']}; chunks {r['chunks']}; verify rounds "
+            f"{r['rounds']}, accepted {r['accepted']}/{r['proposed']} "
+            f"({rate}); launches {r['launches']}")
+        if not all(q.done and len(q.output) == q.max_new_tokens
+                   for q in reqs) or r["tokens"] != want:
+            raise AssertionError(f"{label}: expected {want} decode tokens "
+                                 f"and {args['max_new']} per request, got "
+                                 f"{r['tokens']}")
+        if not all(0 <= t < cfg.vocab_size for q in reqs for t in q.output):
+            raise AssertionError(f"{label}: token out of vocabulary")
+        # the kernels each path runs: paged decode wherever decode_n runs,
+        # prefill attention on the classic prefills of prefix misses, the
+        # draft model's prefill and dense decode.  With the model draft
+        # every round has proposals, so every token goes through verify
+        # (plain products) and the paged decode kernel is not on its path
+        if options.get("spec_source") == "model":
+            used = ["flash_attention", "flash_decode"]
+        elif kind == "prefix":
+            used = ["flash_decode_paged", "flash_attention"]
+        else:
+            used = ["flash_decode_paged"]
+        for name in used:
+            if r["launches"][name] == 0 and device == "cuda":
+                raise AssertionError(f"{label}: kernel {name} never "
+                                     "launched")
+        if "prefix_cache" in options and r["hits"] == 0:
+            raise AssertionError(f"{label}: no prefix hit")
+        if "max_batch_tokens" in options and r["chunks"] <= len(reqs):
+            raise AssertionError(f"{label}: {r['chunks']} chunks for "
+                                 f"{len(reqs)} requests")
+        if "speculate" in options and r["rounds"] == 0:
+            raise AssertionError(f"{label}: no verify round")
+        out[label] = r
+    return out
+
+
+def plain_paths_phase(cfg, params, args) -> dict:
+    """Device time of one call of each plain attention routine the serve
+    modes add, at full width with layer 0's weights (the q/k/v/o
+    projections included): the suffix prefill of a prefix hit (64-token
+    bucket over a 4-page prefix row), a prefill chunk (32 tokens at a
+    mid-page start over a pages_per_seq-wide row) and a verify call (every
+    slot, k + 1 = 5 positions, a 16-page table).  The JAX package runs
+    them as einsums outside any Pallas kernel; so does the port."""
+    from repro_torch.models import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    bf16 = torch.bfloat16
+    p = {k: v[0] for k, v in params["layers"][0]["attn"].items()}
+    ps, slots = 16, args["slots"]
+    n_tab = args["cache_len"] // ps
+    pool_shape = (slots * n_tab + 1, ps, cfg.num_kv_heads, cfg.head_dim)
+    pool = {n: rand(gen, pool_shape, bf16) for n in ("k", "v")}
+    perm = torch.randperm(pool_shape[0] - 1, generator=gen,
+                          device="cuda") + 1
+    rows = perm[:slots * n_tab].reshape(slots, n_tab).to(torch.int32)
+    out = {}
+    x = rand(gen, (1, 64, cfg.d_model), bf16)
+    out["suffix prefill (64 tokens, 4-page prefix)"] = time_ms(
+        lambda: A.attention_prefill_paged(p, x, pool, rows[:1, :4], 64, cfg))
+    x = rand(gen, (1, 32, cfg.d_model), bf16)
+    out[f"prefill chunk (32 tokens from line 40, {n_tab}-page row)"] = \
+        time_ms(lambda: A.attention_prefill_paged(p, x, pool, rows[:1], 40,
+                                                  cfg))
+    S = 5
+    x = rand(gen, (slots, S, cfg.d_model), bf16)
+    pos0 = torch.full((slots,), 100, dtype=torch.int64, device="cuda")
+    lines = pos0[:, None] + torch.arange(S, device="cuda")
+    pages = rows.to(torch.int64).gather(1, lines // ps)
+    offs = lines % ps
+    out[f"verify ({slots} slots x {S} positions, 16-page table)"] = \
+        time_ms(lambda: A.attention_verify(p, x, pool, pos0, pages, offs,
+                                           rows[:, :16], cfg))
+    for name, ms in out.items():
+        log(f"  plain {name}: {ms:.4f} ms a call (device time)")
+    return out
+
+
+def top2_gap(cfg, params, prompt, prefix_out, device="cuda") -> float:
+    """The top-2 logit gap of the next token after ``prompt`` +
+    ``prefix_out``, from a prefill of that context (the classic run's
+    logits at that token, up to the prefill/decode summation order)."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.models.model import prefill
+
+    toks = np.concatenate([prompt, np.asarray(prefix_out, np.int32)])
+    with torch.no_grad():
+        logits, _ = prefill(params, {"tokens": torch.from_numpy(
+            toks.astype(np.int32)).to(device)[None]}, cfg,
+            RunConfig(use_kernels=True))
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def identity_phase(cfg, args, device="cuda") -> dict:
+    """Greedy identity of the four modes with the classic paged engine,
+    at full width in f32 with the depth cut to 4 layers: token for token
+    on each request set.  A difference passes only as a tie: the classic
+    run's top-2 logit gap at the first differing token below 1e-4.  The
+    KV lines are f32 (:func:`f32_lines`)."""
+    from repro_torch.models import init_params
+    from repro_torch.models.model import cast_for_compute
+
+    c4 = dataclasses.replace(cfg, num_layers=4, dtype="float32")
+    params = cast_for_compute(init_params(c4, SEED, device), torch.float32)
+    refs, launches, ties = {}, {}, 0
+    for label, kind, options in SERVE_MODES:
+        if kind not in refs:
+            refs[kind] = run_mode(c4, params, args, kind, {}, greedy=True,
+                                  device=device)
+            for k, n in refs[kind]["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+        ref = refs[kind]
+        r = run_mode(c4, params, args, kind, options, greedy=True,
+                     device=device)
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        same = 0
+        for q, a, b in zip(r["requests"], ref["outputs"], r["outputs"]):
+            if a == b:
+                same += 1
+                continue
+            j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            gap = top2_gap(c4, params, q.prompt, a[:j], device)
+            log(f"  {label}: request {q.rid} differs at token {j} "
+                f"({a[j]} classic, {b[j]} here); classic top-2 gap "
+                f"{gap:.3e}")
+            if gap >= 1e-4:
+                raise AssertionError(f"identity: {label} request {q.rid} "
+                                     f"differs at token {j} with a top-2 "
+                                     f"gap of {gap}")
+            ties += 1
+        log(f"  {label}: {same}/{len(ref['outputs'])} requests token for "
+            f"token equal to the classic paged engine's; {r['tok_s']:.1f} "
+            f"tok/s (classic {ref['tok_s']:.1f}); verify rounds "
+            f"{r['rounds']}, accepted {r['accepted']}/{r['proposed']}")
+    log(f"  ties (classic top-2 gap < 1e-4 at the first difference): "
+        f"{ties}; launches {launches} (a check in f32 at 4 layers, not the "
+        "main path: not in the kernels line)")
+    return {"launches": launches, "ties": ties}
 
 
 def profile_phase(cfg, params, args, paged: bool,
@@ -645,7 +938,7 @@ def consistency_phase(cfg, params, device="cuda") -> dict:
     f32 run."""
     from repro_torch.configs import RunConfig
     from repro_torch.models.model import decode_step, init_cache, prefill
-    from repro_torch.serving.engine import cast_for_compute
+    from repro_torch.models.model import cast_for_compute
 
     rng = np.random.default_rng(SEED + 1)
     P, steps = 77, 3
@@ -921,16 +1214,21 @@ def main(argv=None) -> int:
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build
     from repro_torch.models import init_params
-    from repro_torch.serving.engine import cast_for_compute
+    from repro_torch.models.model import cast_for_compute
 
     resolve_device("cuda")                 # pins TF32 off for f32 products
     t_start = time.perf_counter()
-    log(f"[1/8] device: {smi} | torch {torch.__version__} cuda "
+
+    def at() -> str:
+        """Seconds since the start, for the phase headers."""
+        return f"at {time.perf_counter() - t_start:.1f} s"
+
+    log(f"[1/9] device: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     build.build_all(verbose=True)
-    log(f"[2/8] build: kernels built in {time.perf_counter() - t0:.1f} s "
+    log(f"[2/9] build: kernels built in {time.perf_counter() - t0:.1f} s "
         f"({build.BUILD_ROOT / build.source_hash()})")
 
     cfg = get_config("stablelm-3b")
@@ -938,9 +1236,10 @@ def main(argv=None) -> int:
     targs = dict(batch=4, microbatches=2, seq_len=2048, steps=4)
     shape = dict(H=cfg.num_heads, K=cfg.num_kv_heads, Dh=cfg.head_dim,
                  slots=4, cache_len=512, prefill_len=128)
-    log(f"[3/8] kernels vs plain versions (tolerance bf16 {TOL[torch.bfloat16]}"
-        f", f32 {TOL[torch.float32]}; times: median of 20 launches, L2 "
-        "flushed, queued behind a sleep: device time only):")
+    log(f"[3/9] {at()}: kernels vs plain versions (tolerance bf16 "
+        f"{TOL[torch.bfloat16]}, f32 {TOL[torch.float32]}; times: median "
+        "of 20 launches, L2 flushed, queued behind a sleep: device time "
+        "only):")
     kernels = kernel_phase(shape)
     kernels.update(ssd_kernel_phase(tcfg, targs["batch"] //
                                     targs["microbatches"], targs["seq_len"]))
@@ -950,10 +1249,10 @@ def main(argv=None) -> int:
         return 0
     grad_phase()
 
-    log(f"[4/8] serve: full-width {cfg.name} ({cfg.num_layers} layers, "
-        f"d_model {cfg.d_model}, {cfg.num_heads} heads x {cfg.head_dim}, "
-        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), random weights seed "
-        f"{SEED}, bf16 compute")
+    log(f"[4/9] {at()}: serve: full-width {cfg.name} ({cfg.num_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads x "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), random "
+        f"weights seed {SEED}, bf16 compute")
     params = cast_for_compute(init_params(cfg, SEED, "cuda"), torch.bfloat16)
     torch.cuda.synchronize()
     log(f"  params {cfg.param_count() / 1e9:.3f} B, "
@@ -961,46 +1260,70 @@ def main(argv=None) -> int:
     args = dict(requests=8, slots=shape["slots"],
                 cache_len=shape["cache_len"], max_new=32, decode_chunk=8)
     # the first run in the process pays one-time costs (cuBLAS set-up and
-    # heuristics for each product shape), which would land on the dense run
-    serve_phase(cfg, params, False, args, label="warm-up (dense, not kept)")
-    dense = serve_phase(cfg, params, False, args)
-    paged = serve_phase(cfg, params, True, args)
+    # heuristics for each product shape), which would land on the dense
+    # run; its first 5 requests use all three prefill buckets.  The dense
+    # and paged runs take one wave of 4 requests (the serve modes' time
+    # comes out of theirs); the budgeted mode runs all 8
+    serve_phase(cfg, params, False, dict(args, requests=5),
+                label="warm-up (dense, not kept)")
+    dense = serve_phase(cfg, params, False, dict(args, requests=4))
+    paged = serve_phase(cfg, params, True, dict(args, requests=4))
     profiles = {kind: profile_phase(cfg, params, args, kind == "paged")
                 for kind in ("dense", "paged")}
 
-    log("[5/8] consistency at full width (kernels vs plain versions):")
+    log(f"[5/9] {at()}: serve modes: full-width {cfg.name}, bf16, "
+        f"{args['slots']} slots, cache {args['cache_len']}, 16-line pages, "
+        f"decode chunk {args['decode_chunk']}, {args['requests']} requests "
+        f"of {args['max_new']} tokens a run")
+    modes = serve_modes_phase(cfg, params, args)
+    plain_paths_phase(cfg, params, args)
+
+    log(f"[6/9] {at()}: consistency at full width (kernels vs plain "
+        "versions):")
     consistency_phase(cfg, params)
     del params
     torch.cuda.empty_cache()
+    log(f"  {at()}: greedy identity of the serve modes with the classic "
+        f"paged engine: full-width {cfg.name} in f32, depth cut to 4 layers")
+    identity_phase(cfg, args)
+    torch.cuda.empty_cache()
 
     ssm = tcfg.ssm
-    log(f"[6/8] train: full-width {tcfg.name} ({tcfg.num_layers} layers, "
-        f"d_model {tcfg.d_model}, {ssm.num_heads(tcfg.d_model)} SSD heads x "
-        f"{ssm.head_dim}, state {ssm.state}, chunk {ssm.chunk}, vocab "
+    log(f"[7/9] {at()}: train: full-width {tcfg.name} ({tcfg.num_layers} "
+        f"layers, d_model {tcfg.d_model}, {ssm.num_heads(tcfg.d_model)} SSD "
+        f"heads x {ssm.head_dim}, state {ssm.state}, chunk {ssm.chunk}, vocab "
         f"{tcfg.vocab_size}), f32 weights seed {SEED}, bf16 compute, f32 "
         f"AdamW, remat=layer, {targs['batch']} x {targs['seq_len']} tokens "
         f"in {targs['microbatches']} microbatches")
     train = train_phase(tcfg, targs, kernels["ssd_scan"]["ms"])
     torch.cuda.empty_cache()
 
-    log("[7/8] train consistency at full width (kernels vs plain vs f32):")
+    log(f"[8/9] {at()}: train consistency at full width (kernels vs plain "
+        "vs f32):")
     train_consistency_phase(tcfg, targs)
 
-    launches = {name: dense["launches"][name] + paged["launches"][name]
+    # the main path's serve runs: the f32 4-layer identity runs are a
+    # check, not the path, and log their launches on their own line
+    serve_runs = [dense, paged, *modes.values()]
+    launches = {name: sum(r["launches"][name] for r in serve_runs)
                 for name in ("flash_attention", "flash_decode",
                              "flash_decode_paged")}
     launches["ssd_scan"] = train["launches"]["ssd_scan"]
     summary = {name: {"max_abs_err": r["max_abs_err"],
                       "launches": launches[name]}
                for name, r in kernels.items()}
-    log(f"[8/8] summary ({time.perf_counter() - t_start:.1f} s; serve "
+    mode_rates = ", ".join(f"{label} {r['tok_s']:.1f}"
+                           for label, r in modes.items())
+    log(f"[9/9] summary ({time.perf_counter() - t_start:.1f} s; serve "
         f"dense {dense['tok_s']:.1f} tok/s, paged {paged['tok_s']:.1f} "
-        f"tok/s; decode kernel per token step dense "
+        f"tok/s; modes {mode_rates} tok/s; decode kernel per token step "
+        f"dense "
         f"{profiles['dense']['decode_ms_per_step']} ms, paged "
         f"{profiles['paged']['decode_ms_per_step']} ms; train "
         f"{train['tok_s']:,.0f} tok/s, {train['step_s']:.3f} s/step, peak "
-        f"{train['peak_gib']:.2f} GiB; attention launches summed over both "
-        "serve runs, ssd_scan over the kept train steps)")
+        f"{train['peak_gib']:.2f} GiB; attention launches summed over "
+        "the bf16 serve runs (dense, paged, the four modes), ssd_scan over "
+        "the kept train steps)")
     log("kernels " + json.dumps(summary))
     log(smi)
     line = {"kernels": [dict(name=name, route=r["route"], source=r["source"],

@@ -6,6 +6,12 @@ load through it, reporting throughput and latency — per tenant when
 Runs on the CUDA device unless ``--device cpu`` is given; with no CUDA
 device and no explicit CPU request it raises.  Attention runs through the
 hand-written CUDA kernels on the card.
+
+The engine's serving modes have the JAX CLI's flags: ``--prefix-cache``
+(with ``--shared-prefix N`` to give the synthetic requests a common system
+prompt), ``--max-batch-tokens [T]``, ``--speculate [K]`` with
+``--spec-source`` and ``--draft-model``, ``--no-fused`` and ``--trace
+OUT_JSON``.  The first three imply ``--kv-paging 16``.
 """
 from __future__ import annotations
 
@@ -18,9 +24,34 @@ from repro_torch.configs import ARCH_IDS, RunConfig, get_config, \
     get_reduced_config
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params
-from repro_torch.monitoring import MetricsRegistry
-from repro_torch.monitoring.metrics import METRIC_SERVE_TENANT_TOKENS
+from repro_torch.monitoring import MetricsRegistry, Tracer
+from repro_torch.monitoring.metrics import (
+    METRIC_SERVE_PREFIX_EVICTIONS, METRIC_SERVE_PREFIX_HITS,
+    METRIC_SERVE_PREFIX_MISSES, METRIC_SERVE_PREFIX_REUSED_TOKENS,
+    METRIC_SERVE_TENANT_TOKENS,
+)
 from repro_torch.serving import AdmissionController, DecodeEngine, Request
+
+#: page size that --prefix-cache, --max-batch-tokens and --speculate fall
+#: back to when --kv-paging is absent
+DEFAULT_PAGE_SIZE = 16
+
+
+def resolve_paging(args) -> int:
+    """--prefix-cache, --max-batch-tokens and --speculate need the paged
+    KV cache: with no explicit page size the default kicks in, and the CLI
+    says so."""
+    if args.kv_paging:
+        return args.kv_paging
+    for flag, on in (("--prefix-cache", args.prefix_cache),
+                     ("--max-batch-tokens",
+                      args.max_batch_tokens is not None),
+                     ("--speculate", bool(args.speculate))):
+        if on:
+            print(f"[serve] {flag} implies --kv-paging: using "
+                  f"{DEFAULT_PAGE_SIZE}-line pages")
+            return DEFAULT_PAGE_SIZE
+    return 0
 
 
 def parse_tenants(spec: str, shares: str = "") -> dict[str, int]:
@@ -55,14 +86,28 @@ def parse_buckets(spec: str):
 
 
 def make_requests(args, cfg, names, qos_cycle) -> list:
-    """The synthetic workload: per-request prompt lengths, tenants and QOS
-    are a pure function of ``--seed`` (the JAX CLI's workload without its
-    shared-prefix option)."""
+    """The synthetic workload (the JAX CLI's): per-request prompt lengths,
+    tenants and QOS are a pure function of ``--seed``; ``--shared-prefix
+    N`` puts the same N-token system prompt ahead of every prompt (a
+    phrase of 8 tokens repeated under ``--speculate``, with the prompt's
+    tail back inside it, so prompt-lookup drafts have material)."""
     rng = np.random.default_rng(args.seed)
+    assert args.shared_prefix < args.cache_len, "--shared-prefix too long"
+    system = rng.integers(2, cfg.vocab_size,
+                          args.shared_prefix).astype(np.int32)
+    if args.speculate and args.shared_prefix >= 8:
+        phrase = system[:8]
+        system = np.tile(phrase, -(-args.shared_prefix // 8))[
+            :args.shared_prefix]
     requests = []
     for rid in range(args.requests):
         plen = int(rng.integers(4, args.cache_len // 4))
         prompt = rng.integers(2, cfg.vocab_size, plen).astype(np.int32)
+        if args.shared_prefix:
+            prompt = np.concatenate([system, prompt])[:args.cache_len - 1]
+            if args.speculate and args.shared_prefix >= 8:
+                prompt = np.concatenate([prompt, system[:8]])[
+                    :args.cache_len - 1]
         requests.append(Request(
             rid=rid,
             prompt=prompt,
@@ -85,6 +130,8 @@ def main(argv=None) -> int:
     ap.add_argument("--decode-chunk", type=int, default=8,
                     help="tokens generated per decode call (one host sync "
                          "per chunk); 1 = per-token chunks")
+    ap.add_argument("--no-fused", action="store_true",
+                    help="use the per-token host sampling loop")
     ap.add_argument("--prefill-buckets", default="auto",
                     help="'auto' (power-of-two), 'off', or comma lengths "
                          "e.g. 32,64,128 — prompts pad to the next bucket")
@@ -94,6 +141,42 @@ def main(argv=None) -> int:
     ap.add_argument("--kv-pages", type=int, default=None,
                     help="page-pool size override (default: dense-budget "
                          "equivalent, slots*cache_len/page_size + null)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix prefix cache: requests sharing a prompt "
+                         "prefix map the same KV pages read-only and "
+                         "prefill only their suffix (implies --kv-paging "
+                         f"{DEFAULT_PAGE_SIZE})")
+    ap.add_argument("--shared-prefix", type=int, default=0, metavar="N",
+                    help="prepend the same N-token system prompt to every "
+                         "synthetic request (exercises --prefix-cache)")
+    ap.add_argument("--max-batch-tokens", type=int, nargs="?", const=512,
+                    default=None, metavar="T",
+                    help="token-budgeted iterations mixing decode lanes "
+                         "and prefill chunks under a T-token budget, so "
+                         "long prompts stop blocking short ones (bare "
+                         "flag: T=512; implies --kv-paging "
+                         f"{DEFAULT_PAGE_SIZE})")
+    ap.add_argument("--speculate", type=int, nargs="?", const=4,
+                    default=0, metavar="K",
+                    help="speculative decoding: draft up to K tokens per "
+                         "lane and verify them in one call — greedy "
+                         "output stays identical, temperature uses "
+                         "rejection sampling (bare flag: K=4; implies "
+                         f"--kv-paging {DEFAULT_PAGE_SIZE})")
+    ap.add_argument("--spec-source", default="ngram",
+                    choices=("ngram", "model"),
+                    help="draft source: 'ngram' prompt lookup, or 'model' "
+                         "(a small draft model with its own dense cache)")
+    ap.add_argument("--draft-model", default=None, choices=ARCH_IDS,
+                    metavar="ARCH",
+                    help="with --spec-source model: the architecture to "
+                         "draft with (reduced; must share the target's "
+                         "vocabulary).  Default: a 1-layer shrink of the "
+                         "target config")
+    ap.add_argument("--trace", default="", metavar="OUT_JSON",
+                    help="record request-lifecycle spans, write a Chrome "
+                         "trace-event JSON (Perfetto, chrome://tracing) "
+                         "and print the SLO report")
     ap.add_argument("--tenants", default="",
                     help="tenant:shares list, e.g. alice:8,bob:1 "
                          "(empty: single default tenant)")
@@ -118,18 +201,31 @@ def main(argv=None) -> int:
     metrics = MetricsRegistry()
     tenants = parse_tenants(args.tenants, args.shares) if args.tenants \
         else {"default": 1}
-    admission = AdmissionController()
+    tracer = Tracer(metrics=metrics) if args.trace else None
+    admission = AdmissionController(tracer=tracer)
     for name, share in tenants.items():
         admission.add_tenant(name, shares=share)
+    draft_cfg = None
+    if args.draft_model is not None:
+        draft_cfg = get_reduced_config(args.draft_model)
+        assert draft_cfg.vocab_size == cfg.vocab_size, \
+            "--draft-model must share the target's vocabulary"
     engine = DecodeEngine(cfg, params, num_slots=args.slots,
                           cache_len=args.cache_len, metrics=metrics,
                           admission=admission,
                           run=RunConfig(use_kernels=True),
                           seed=args.seed,
                           decode_chunk=args.decode_chunk,
+                          fused=not args.no_fused,
                           prefill_buckets=parse_buckets(args.prefill_buckets),
-                          kv_page_size=args.kv_paging,
+                          kv_page_size=resolve_paging(args),
                           kv_pages=args.kv_pages,
+                          prefix_cache=args.prefix_cache,
+                          max_batch_tokens=args.max_batch_tokens,
+                          tracer=tracer,
+                          speculate=args.speculate,
+                          spec_source=args.spec_source,
+                          draft_model=draft_cfg,
                           device=device)
     del params                               # the engine holds its cast copy
     names = list(tenants)
@@ -148,9 +244,11 @@ def main(argv=None) -> int:
     engine.run_to_completion()
     wall = time.perf_counter() - t0
     total = int(metrics.counter("serve_tokens_generated").value())
+    mode = ("host loop" if args.no_fused
+            else f"fused chunk={args.decode_chunk}")
     print(f"served {args.requests} requests, {total} tokens in {wall:.1f}s "
-          f"({total / wall:,.1f} tok/s, {args.slots} slots, fused "
-          f"chunk={args.decode_chunk}, {device})")
+          f"({total / wall:,.1f} tok/s, {args.slots} slots, {mode}, "
+          f"{device})")
     if engine.prefill_buckets:
         print(f"prefill buckets {engine.prefill_buckets}: "
               f"{len(engine.prefill_lengths)} bucket lengths used")
@@ -160,6 +258,32 @@ def main(argv=None) -> int:
               f"(high-water {engine.allocator.high_water}, "
               f"{int(metrics.counter('serve_page_starvations').value())} "
               f"starvation requeues)")
+    if engine.max_batch_tokens is not None:
+        st = engine.serve_stats
+        spent = st["decode_tokens"] + st["prefill_tokens"]
+        cap = st["iterations"] * engine.max_batch_tokens
+        print(f"chunked prefill: budget {engine.max_batch_tokens} "
+              f"tok/step, {st['iterations']} iterations, fill "
+              f"{spent}/{cap} ({spent / cap if cap else 0:.0%}), "
+              f"{st['prefill_chunks']} prefill chunks (bucket lengths "
+              f"{sorted(engine.chunk_lengths)})")
+    if engine.speculate:
+        st = engine.spec_stats
+        rate = st["accepted"] / st["proposed"] if st["proposed"] else 0.0
+        per_round = st["emitted"] / st["rounds"] if st["rounds"] else 0.0
+        print(f"speculative decoding: k={engine.speculate} "
+              f"({args.spec_source}), {st['rounds']} verify rounds, "
+              f"accepted {st['accepted']}/{st['proposed']} drafts "
+              f"({rate:.0%}), {per_round:.2f} tokens/round")
+    if engine.prefix is not None:
+        hits = int(metrics.counter(METRIC_SERVE_PREFIX_HITS).value())
+        misses = int(metrics.counter(METRIC_SERVE_PREFIX_MISSES).value())
+        reused = int(metrics.counter(
+            METRIC_SERVE_PREFIX_REUSED_TOKENS).value())
+        evicted = int(metrics.counter(METRIC_SERVE_PREFIX_EVICTIONS).value())
+        print(f"prefix cache: {hits} hits / {misses} misses, {reused} "
+              f"prompt tokens reused, {evicted} pages evicted, "
+              f"{engine.prefix.nodes} pages cached")
     if len(names) > 1 and total:
         tok = metrics.counter(METRIC_SERVE_TENANT_TOKENS)
         parts = []
@@ -173,6 +297,11 @@ def main(argv=None) -> int:
           f"ms  p99 "
           f"{metrics.histogram('serve_decode_seconds').quantile(0.99)*1e3:.1f}"
           f"ms")
+    if tracer is not None:
+        data = tracer.export_chrome(args.trace)
+        print(f"trace: {len(data['traceEvents'])} events -> {args.trace} "
+              f"(load in ui.perfetto.dev)")
+        print(tracer.slo.format_report())
     return 0
 
 

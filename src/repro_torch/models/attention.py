@@ -307,3 +307,122 @@ def attention_decode_paged(p: dict, x: torch.Tensor, cache: dict, pos,
     o = torch.einsum("bkgqs,bskd->bqkgd", probs,
                      vd.to(x.dtype)).reshape(B, 1, H, Dh)
     return out_proj(p, o), cache
+
+
+# ------------------------------------------ paged prefill and verify ----
+
+def attention_prefill_paged(p: dict, x: torch.Tensor, cache: dict,
+                            page_table: torch.Tensor, start,
+                            cfg: ModelConfig):
+    """Suffix prefill against a prefix already in the paged KV pool: the
+    prefix-cache hit path (``start`` page-aligned) and every chunk of a
+    chunked prefill (``start`` anywhere, ``models.model.prefill_chunk``).
+
+    x: (B, S, d) hidden states of the suffix tokens, at absolute positions
+    ``start + [0, S)``; cache k/v: the pool (num_pages, page_size, K, Dh);
+    page_table: (B, n) rows whose first ``ceil(start / page_size)``
+    entries map the prefix (the rest null); start: int prefix length.
+    The prefix is masked at line granularity (``arange(L) < start``), so
+    a partly filled last page gives exactly its live lines.
+
+    Suffix queries attend to [the gathered prefix, the suffix itself
+    causally] in one softmax; the two regions' partial sums are taken in
+    f32 and cast once, as the JAX version does: a bf16 rounding between
+    them would drift the suffix hidden states away from a whole-prompt
+    prefill.  The pool is only read — shared prefix pages are never
+    written; the suffix K/V lines are returned for the caller to write
+    into its own pages.  Plain PyTorch products: the JAX version is
+    einsums outside any Pallas kernel.
+
+    Returns (out (B,S,d), {"k","v"} suffix lines (B, S, K, Dh)).
+    """
+    B, S, _ = x.shape
+    q, k, v = qkv_proj(p, x, cfg)
+    pos = start + torch.arange(S, device=x.device)
+    if cfg.pos_embedding == "rope":
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    H, Dh = q.shape[2], q.shape[3]
+    K = k.shape[2]
+    G = H // K
+    ps = cache["k"].shape[1]
+    L = page_table.shape[1] * ps                     # logical prefix width
+    scale = Dh ** -0.5
+    idx = page_table.to(torch.int64)
+    kd = cache["k"][idx].reshape(B, L, K, Dh).to(q.dtype)
+    vd = cache["v"][idx].reshape(B, L, K, Dh).to(q.dtype)
+    qg = q.reshape(B, S, K, G, Dh)
+    # prefix: every suffix query sees every position < start; pool lines
+    # at or past start (stale, or the null page) are masked out
+    lp = torch.einsum("bqkgd,bskd->bkgqs", qg, kd).to(f32) * scale
+    pre_valid = torch.arange(L, device=x.device) < start
+    lp = torch.where(pre_valid, lp, _NEG_INF)
+    # suffix: causal within itself (a bucketed suffix's pad tail sits at
+    # higher positions, so real queries never see it)
+    ls = torch.einsum("bqkgd,bskd->bkgqs", qg, k).to(f32) * scale
+    ar = torch.arange(S, device=x.device)
+    causal = ar[None, :] <= ar[:, None]
+    ls = torch.where(causal, ls, _NEG_INF)
+    probs = torch.softmax(torch.cat([lp, ls], dim=-1), dim=-1).to(x.dtype)
+    o = (torch.einsum("bkgqs,bskd->bqkgd", probs[..., :L].to(f32),
+                      vd.to(f32))
+         + torch.einsum("bkgqs,bskd->bqkgd", probs[..., L:].to(f32),
+                        v.to(f32)))
+    o = o.to(x.dtype).reshape(B, S, H, Dh)
+    return out_proj(p, o), {"k": k, "v": v}
+
+
+def attention_verify(p: dict, x: torch.Tensor, cache: dict, pos0,
+                     pages: torch.Tensor, offs: torch.Tensor,
+                     page_table: torch.Tensor, cfg: ModelConfig):
+    """Multi-position decode against the paged pool (speculative verify).
+
+    x: (B, S, d) hidden states of S consecutive tokens per slot (the last
+    sampled token, then S-1 drafts) at positions ``pos0 + [0, S)``; pos0:
+    (B,) int; pages/offs: (B, S) int physical write targets of each
+    token's KV line (the null page past a slot's allocation and for dead
+    slots); page_table: (B, n) as in :func:`attention_decode_paged`.
+
+    All S lines are written into the pool **in place** first; then each
+    row gathers the pool through the page table and masks ``arange(L) <=
+    pos0 + j``, with the scale, einsum strings and cast points of the
+    plain path of :func:`attention_decode_paged` — row j is the one-token
+    decode at ``pos0 + j``.  Several rows may target the null page at
+    once; on CUDA ``index_put_`` then keeps one of the duplicate lines in
+    no fixed order, which is harmless only because the null page is
+    masked in every read.  Plain PyTorch products: the JAX version is
+    einsums outside any Pallas kernel.
+
+    Returns (out (B,S,d), cache)."""
+    assert cfg.sliding_window is None, "paged KV is full-attention only"
+    B, S, _ = x.shape
+    ck, cv = cache["k"], cache["v"]
+    ps = ck.shape[1]
+    q, k, v = qkv_proj(p, x, cfg)                     # (B,S,H/K,Dh)
+    posm = (torch.as_tensor(pos0, device=x.device).to(torch.int64)[:, None]
+            + torch.arange(S, device=x.device)[None, :])
+    if cfg.pos_embedding == "rope":
+        q = apply_rope(q, posm, cfg.rope_theta)
+        k = apply_rope(k, posm, cfg.rope_theta)
+    pg, of = pages.to(torch.int64), offs.to(torch.int64)
+    ck.index_put_((pg, of), k.to(ck.dtype))
+    cv.index_put_((pg, of), v.to(cv.dtype))
+
+    H, Dh = q.shape[2], q.shape[3]
+    K = ck.shape[2]
+    G = H // K
+    n_pages = page_table.shape[1]
+    L = n_pages * ps
+    qg = q.reshape(B, S, K, G, Dh)
+    idx = page_table.to(torch.int64)
+    kd = ck[idx].reshape(B, L, K, Dh)
+    vd = cv[idx].reshape(B, L, K, Dh)
+    valid = torch.arange(L, device=x.device)[None, None, :] \
+        <= posm[:, :, None]                                   # (B,S,L)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg,
+                          kd.to(q.dtype)).to(f32) * (Dh ** -0.5)
+    logits = torch.where(valid[:, None, None], logits, _NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    o = torch.einsum("bkgqs,bskd->bqkgd", probs,
+                     vd.to(x.dtype)).reshape(B, S, H, Dh)
+    return out_proj(p, o), cache

@@ -9,6 +9,10 @@ Entry points (plain functions of (params, inputs, cache)):
   * ``decode_step(params, cache, token, pos, cfg, run)`` -> (logits, cache)
   * ``decode_n(params, cache, token, pos, ...)`` -> N tokens per call with
     on-device sampling and per-slot stop masking (one host sync per chunk)
+  * ``prefill_suffix`` / ``prefill_chunk`` -> a prompt's tail against
+    lines already in the paged pool (prefix-cache hits, chunked prefill)
+  * ``verify_tokens`` -> k+1 positions per slot in one call (speculative
+    verify)
 
 Parameters are the JAX package's tree: layer groups stacked on dim 0 with
 period ``group_period(cfg)``; a Python loop over groups replaces
@@ -39,6 +43,19 @@ AUX_KEYS = ("moe_balance_loss", "moe_z_loss")
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch_dtype(cfg.dtype)
+
+
+def cast_for_compute(params, dtype: torch.dtype):
+    """Cast every weight that the model casts to the compute dtype at use
+    (matrices, embeddings, biases) once, up front — the same numbers as
+    casting at every use.  Norm scales stay in their storage dtype: the
+    model reads them in f32."""
+    if isinstance(params, dict):
+        return {k: (v if k == "scale" else cast_for_compute(v, dtype))
+                for k, v in params.items()}
+    if isinstance(params, list):
+        return [cast_for_compute(v, dtype) for v in params]
+    return params.to(dtype)
 
 
 def _check_dense(cfg: ModelConfig):
@@ -228,6 +245,67 @@ def prefill(params, batch: dict, cfg: ModelConfig, run: RunConfig,
     return logits, {"layers": caches}
 
 
+def prefill_suffix(params, batch: dict, cache, page_table, start,
+                   cfg: ModelConfig, run: RunConfig,
+                   last_pos: Optional[int] = None):
+    """Prefill the tokens past a prefix already in the paged pool (the
+    prefix-cache hit path: only the prompt's un-cached tail runs).
+
+    ``batch["tokens"]``: (B, S) the suffix tokens, at absolute positions
+    ``start + [0, S)``; ``cache``: the paged pool (only read here);
+    ``page_table``: (B, n) rows whose first ``ceil(start / page_size)``
+    entries map the prefix; ``start``: int prefix length — page-aligned on
+    the prefix-cache path, anywhere for :func:`prefill_chunk` (the prefix
+    mask is line-granular); ``last_pos`` as in :func:`prefill`, a local
+    index into the suffix.  The attention is the plain path of
+    ``attention.attention_prefill_paged`` whatever ``run.use_kernels``
+    says: the JAX version reaches no Pallas kernel either.
+
+    Returns (logits (B,1,V), {"layers": [{"k","v"} (G, B, S, K, Dh)]}):
+    the suffix lines, for the caller to write into its own pages; shared
+    pages are never written.  Dense attention configs only.
+    """
+    _check_dense(cfg)
+    P = group_period(cfg)
+    h = embed_tokens(params, batch["tokens"], cfg)
+    S = h.shape[1]
+    if cfg.pos_embedding == "sinusoidal":
+        pe = A.sinusoidal_pe(start + torch.arange(S, device=h.device),
+                             cfg.d_model)
+        h = h + pe.to(h.dtype)[None]
+    per_layer = [{"k": [], "v": []} for _ in range(P)]
+    for g in range(_groups(params)):
+        for i in range(P):
+            p = _take(params["layers"][i], g)
+            c = _take(cache["layers"][i], g)
+            hh = rmsnorm(h, p["norm1"]["scale"], cfg.norm_eps)
+            hh, kv = A.attention_prefill_paged(p["attn"], hh, c, page_table,
+                                               start, cfg)
+            h = _ffn(p, h + hh, cfg)
+            per_layer[i]["k"].append(kv["k"])
+            per_layer[i]["v"].append(kv["v"])
+    h = rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)
+    h_last = h[:, -1:] if last_pos is None else h[:, last_pos:last_pos + 1]
+    caches = [{"k": torch.stack(c["k"]), "v": torch.stack(c["v"])}
+              for c in per_layer]
+    return unembed(params, h_last, cfg), {"layers": caches}
+
+
+def prefill_chunk(params, batch: dict, cache, page_table, start,
+                  cfg: ModelConfig, run: RunConfig,
+                  last_pos: Optional[int] = None):
+    """One chunk of a chunked (token-budgeted) prefill: chunk ``i`` treats
+    the ``start`` lines already in the request's pages as its prefix, so
+    it is :func:`prefill_suffix` with a ``start`` that need not be
+    page-aligned and rows covering the pages of ``[0, start + S)``.  The
+    caller writes the returned lines line by line, mid-page where the
+    chunk starts or ends inside a page.  Greedy decode after N chunks
+    equals one whole-prompt prefill's: the same masked attention over the
+    same absolute positions, with the f32 two-region combine."""
+    return prefill_suffix(params, batch, cache, page_table, start, cfg, run,
+                          last_pos=last_pos)
+
+
 # ----------------------------------------------------------------- decode ----
 
 def decode_step(params, cache, token, pos, cfg: ModelConfig, run: RunConfig,
@@ -256,6 +334,42 @@ def decode_step(params, cache, token, pos, cfg: ModelConfig, run: RunConfig,
             else:
                 hh, _ = A.attention_decode(p["attn"], hh, c, pos, cfg,
                                            use_kernels=run.use_kernels)
+            h = _ffn(p, h + hh, cfg)
+    h = rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)
+    return unembed(params, h, cfg), cache
+
+
+def verify_tokens(params, cache, tokens, pos0, pages, offs, page_table,
+                  cfg: ModelConfig, run: RunConfig):
+    """Score S = k+1 tokens per slot in one call (speculative
+    draft-and-verify).
+
+    tokens: (B, S) — ``tokens[:, 0]`` the slot's last sampled token (its
+    KV line is written now, where the next decode step would write it),
+    ``tokens[:, 1:]`` the k drafts; pos0: (B,) position of ``tokens[:,
+    0]``; pages/offs: (B, S) physical write targets of each line (the
+    null page past a slot's allocation and for dead slots); page_table as
+    in :func:`decode_step`.  ``logits[:, j]`` predicts position ``pos0 +
+    j + 1``; row j is the paged decode step at ``pos0 + j``
+    (``attention.attention_verify``, plain products whatever
+    ``run.use_kernels`` says, as the JAX version reaches no Pallas
+    kernel).  Writes the S lines into the pool in place; returns
+    (logits (B, S, V), cache).  Dense attention configs only."""
+    _check_dense(cfg)
+    P = group_period(cfg)
+    h = embed_tokens(params, tokens, cfg)
+    if cfg.pos_embedding == "sinusoidal":
+        S = tokens.shape[1]
+        posm = (torch.as_tensor(pos0, device=h.device)[:, None]
+                + torch.arange(S, device=h.device)[None, :])
+        h = h + A.sinusoidal_pe(posm, cfg.d_model).to(h.dtype)
+    for g in range(_groups(params)):
+        for i in range(P):
+            p = _take(params["layers"][i], g)
+            c = _take(cache["layers"][i], g)
+            hh = rmsnorm(h, p["norm1"]["scale"], cfg.norm_eps)
+            hh, _ = A.attention_verify(p["attn"], hh, c, pos0, pages, offs,
+                                       page_table, cfg)
             h = _ffn(p, h + hh, cfg)
     h = rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)
     return unembed(params, h, cfg), cache

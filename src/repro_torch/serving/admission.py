@@ -119,7 +119,7 @@ class AdmissionController:
         self.weights = weights or PriorityWeights()
         self.tenants: dict[str, Tenant] = {}
         self._seq = itertools.count()      # global FIFO arrival order
-        #: optional request tracer (``repro.monitoring.Tracer`` in the JAX package) — QUEUED spans, queue-wait
+        #: optional repro_torch.monitoring.Tracer — QUEUED spans, queue-wait
         #: SLO series, and pick-reason attributes hang off it
         self.tracer = tracer
         #: optional shared repro_torch.policy.GrpTresLedger — when set, GrpTRES

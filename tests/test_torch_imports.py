@@ -60,7 +60,8 @@ def test_port_imports_without_jax_repro_or_triton(tmp_path):
     for mod in ("kernels.ssd_scan", "models.ssm", "models.inputs", "tree",
                 "data.pipeline", "optim.adamw", "training.train_step",
                 "training.trainer", "checkpoint.store", "launch.train",
-                "configs.mamba2_780m"):
+                "configs.mamba2_780m", "monitoring.trace", "serving.prefix",
+                "serving.spec"):
         assert f"repro_torch.{mod}" in out["modules"]
     assert not (tmp_path / "build").exists()
 

@@ -47,6 +47,12 @@ DECODE_CASES = {
                      4),
     "one-split": (2, 40, 2, 2, 64, None, "bfloat16", "bfloat16", [39, 0],
                   132),
+    # the speculative draft model (1 layer, 2 heads of 32, its own dense
+    # cache per slot): H = K = 2, Dh 32, in both compute dtypes
+    "draft-dh32-bf16": (4, 96, 2, 2, 32, None, "bfloat16", "bfloat16",
+                        [95, 40, 7, 0], 4),
+    "draft-dh32-f32": (4, 96, 2, 2, 32, None, "float32", "float32",
+                       [95, 40, 7, 0], 4),
 }
 
 # (B, n_pages in a table row, page size, H, K, Dh, q dtype, kv dtype,
@@ -99,8 +105,8 @@ SCAN_CASES = {
                                    (-4.0, 0.1)),
 }
 
-# (B, S, H, K, Dh, window): a block is 16 q rows whose kv tiles of 16
-# lines its 4 warps take in turn
+# (B, S, H, K, Dh, window[, dtype]): in bf16 a block is 16 q rows whose
+# kv tiles of 16 lines its 4 warps take in turn; f32 runs the FMA kernel
 ATTN_CASES = {
     "dh80": (1, 40, 2, 1, 80, None),
     "dh80-kv-heads": (1, 70, 2, 2, 80, None),
@@ -111,6 +117,9 @@ ATTN_CASES = {
     "dh20-tail": (1, 20, 2, 1, 20, None),
     "dh32-b2": (2, 29, 2, 1, 32, None),
     "several-tiles-a-warp": (1, 200, 1, 1, 80, None),
+    # the draft model's prefill: H = K = 2, Dh 32, a bucket of 32
+    "draft-dh32-bf16": (1, 32, 2, 2, 32, None),
+    "draft-dh32-f32": (1, 32, 2, 2, 32, None, "float32"),
 }
 
 
@@ -220,10 +229,11 @@ def _run_cases(out_dir: str) -> dict:
             excess=float((diff - tol * want.abs()).max()),
             dtype=str(dtype)[6:], counters=0, splits=0, chunk=Q)
     for i, (name, case) in enumerate(ATTN_CASES.items()):
-        B, S, H, K, Dh, window = case
+        B, S, H, K, Dh, window = case[:6]
+        dtype = getattr(torch, case[6] if len(case) > 6 else "bfloat16")
         rng = np.random.default_rng(200 + i)
         q, k, v = (_pad_view(torch.from_numpy(rng.standard_normal(
-            (B, S, n, Dh), np.float32)).to(torch.bfloat16), 8)
+            (B, S, n, Dh), np.float32)).to(dtype), 16 // dtype.itemsize)
             for n in (H, K, K))
         o = torch.empty(q.shape, dtype=q.dtype)
         err = lib_a.repro_flash_attention(*fa.attention_args(
@@ -231,7 +241,7 @@ def _run_cases(out_dir: str) -> dict:
         want = ref.attention_ref(q, k, v, window=window)
         errs["attention/" + name] = dict(
             err=err, max_abs=float((o.float() - want.float()).abs().max()),
-            dtype="bfloat16", counters=0, splits=0)
+            dtype=str(dtype)[6:], counters=0, splits=0)
     return errs
 
 

@@ -2,11 +2,17 @@
 the CPU: per-request greedy outputs are identical with the same weights
 and requests (reduced stablelm-3b in f32, dense and paged caches,
 ``decode_chunk=4``, bucketed prefill), QOS preemption resumes to the same
-tokens, temperature sampling follows its distribution, the CLI runs, and
-the options of later slices refuse loudly."""
+tokens, the per-token host loop (``fused=False``) gives the JAX host
+loop's tokens and, traced on one counting clock, the JAX engine's spans,
+temperature sampling follows its distribution, the CLI runs in every
+serving mode, and tensor parallelism (ROADMAP A4) refuses loudly.  The
+prefix cache, chunked prefill and speculation have their own files
+(``test_torch_prefix.py``, ``test_torch_chunked.py``,
+``test_torch_speculative.py``)."""
 import contextlib
 import dataclasses
 import io
+import itertools
 
 import jax
 import numpy as np
@@ -15,11 +21,13 @@ import torch
 
 from repro.configs import get_reduced_config as jax_reduced
 from repro.models import init_params as jax_init_params
+from repro.monitoring import Tracer as JaxTracer
 from repro.serving import AdmissionController as JaxAdmission
 from repro.serving import DecodeEngine as JaxEngine
 from repro.serving import Request as JaxRequest
 from repro_torch.configs import RunConfig, get_reduced_config
 from repro_torch.models.model import sample_tokens
+from repro_torch.monitoring import Tracer
 from repro_torch.monitoring.metrics import METRIC_SERVE_PREEMPTIONS
 from repro_torch.serving import AdmissionController, DecodeEngine, Request
 from repro_torch.weights import params_from_jax
@@ -148,9 +156,7 @@ def test_temperature_requests_sample_and_finish(models):
     assert all(0 <= t < tcfg.vocab_size for r in reqs for t in r.output)
 
 
-@pytest.mark.parametrize("option", [
-    dict(prefix_cache=True), dict(max_batch_tokens=64), dict(speculate=2),
-    dict(fused=False), dict(mesh=object()), dict(tracer=object())])
+@pytest.mark.parametrize("option", [dict(mesh=object())])
 def test_later_slices_refuse_loudly(models, option):
     _, tcfg, _, tparams = models
     with pytest.raises(NotImplementedError):
@@ -164,8 +170,16 @@ def test_default_device_is_cuda_and_never_falls_back(models, monkeypatch):
         DecodeEngine(tcfg, tparams)
 
 
-@pytest.mark.parametrize("extra", [[], ["--kv-paging", "16"]],
-                         ids=["dense", "paged"])
+MODE_FLAGS = {
+    "dense": [], "paged": ["--kv-paging", "16"],
+    "prefix": ["--prefix-cache", "--shared-prefix", "16"],
+    "budgeted": ["--max-batch-tokens", "32"],
+    "speculative": ["--speculate", "2"],
+}
+
+
+@pytest.mark.parametrize("extra", list(MODE_FLAGS.values()),
+                         ids=list(MODE_FLAGS))
 def test_cli_cpu_smoke(extra):
     from repro_torch.launch import serve
     out = io.StringIO()
@@ -180,4 +194,93 @@ def test_cli_cpu_smoke(extra):
     # from the prefill, as in the JAX CLI
     assert "served 3 requests, 9 tokens" in text
     assert "decode p50" in text and "per-tenant tokens" in text
+    # the serving modes imply 16-line pages, as the JAX CLI's do
     assert ("paged KV: 16-line pages" in text) == bool(extra)
+    assert ("implies --kv-paging" in text) == (
+        bool(extra) and extra[0] != "--kv-paging")
+    assert ("prefix cache: " in text) == ("--prefix-cache" in extra)
+    assert ("chunked prefill: budget 32" in text) == \
+        ("--max-batch-tokens" in extra)
+    assert ("speculative decoding: k=2" in text) == ("--speculate" in extra)
+
+
+# ------------------------------------------------ host loop and tracing ----
+
+def _fake_clock():
+    tick = itertools.count()
+    return lambda: next(tick) * 1e-3
+
+
+def _trace_record(tracer):
+    """Every completed span in completion order, with its parent's name,
+    attributes and events: what two tracers on one clock must agree on."""
+    spans = tracer.spans()
+    names = {s.sid: s.name for s in spans}
+    return [(s.name, s.cat, s.track, names.get(s.parent), s.start, s.end,
+             dict(s.attrs), [(e.name, e.ts, e.attrs) for e in s.events])
+            for s in spans]
+
+def _host_run(cls, req_cls, adm_cls, tracer_cls, cfg, params, page_size):
+    """The trace test's preemption scenario (``tests/test_trace.py``) on
+    the per-token host loop, traced on a counting clock."""
+    rng = np.random.default_rng(7)
+    tracer = tracer_cls(clock=_fake_clock())
+    ctrl = adm_cls(tracer=tracer)
+    ctrl.add_tenant("research", shares=1)
+    ctrl.add_tenant("prod", shares=10)
+    kw = {"device": "cpu"} if cls is DecodeEngine else {}
+    eng = cls(cfg, params, num_slots=2, cache_len=64, admission=ctrl,
+              tracer=tracer, fused=False, kv_page_size=page_size, **kw)
+    scavs = [req_cls(rid=i, prompt=rng.integers(0, cfg.vocab_size, 8).astype(
+        np.int32), max_new_tokens=16, tenant="research", qos="scavenger")
+        for i in range(2)]
+    for r in scavs:
+        eng.submit(r)
+    for _ in range(4):
+        eng.step()
+    hi = req_cls(rid=2, prompt=rng.integers(0, cfg.vocab_size, 8).astype(
+        np.int32), max_new_tokens=4, tenant="prod", qos="high")
+    eng.submit(hi)
+    eng.run_to_completion()
+    reqs = scavs + [hi]
+    assert all(r.done for r in reqs)
+    return ([r.output for r in reqs], [r.preemptions for r in reqs]), tracer
+
+
+@pytest.fixture(scope="module")
+def host_ref(models):
+    jcfg, _, jparams, _ = models
+    return _host_run(JaxEngine, JaxRequest, JaxAdmission, JaxTracer, jcfg,
+                     jparams, 16)
+
+
+@pytest.mark.parametrize("page_size", [0, 16], ids=["dense", "paged"])
+def test_host_loop_identical_to_jax(models, host_ref, page_size):
+    """``fused=False``: one decode step and one host sample per token; the
+    greedy outputs and the preemption are the JAX host loop's (paged; the
+    JAX engine's dense and paged host loops give the same tokens)."""
+    _, tcfg, _, tparams = models
+    (got, _) = _host_run(DecodeEngine, Request, AdmissionController, Tracer,
+                         tcfg, tparams, page_size)
+    assert got == host_ref[0]
+    assert sum(got[1]) == 1
+
+
+def test_host_loop_trace_matches_jax(models, host_ref):
+    """One request trace with two DECODE spans around PREEMPT/RESUME, the
+    QUEUED/PREFILL/DECODE spans and SLO series of the reference test — the
+    same record as the JAX engine's, span for span, on one clock."""
+    _, tcfg, _, tparams = models
+    _, tracer = _host_run(DecodeEngine, Request, AdmissionController, Tracer,
+                          tcfg, tparams, 16)
+    rec = _trace_record(tracer)
+    assert rec == _trace_record(host_ref[1])
+    (victim,) = [r for r in rec if r[0].startswith("request")
+                 and any(e[0] == "PREEMPT" for e in r[7])]
+    decodes = [r for r in rec if r[0] == "DECODE" and r[2] == victim[2]]
+    assert len(decodes) == 2 and decodes[0][6]["stop"] == "PREEMPT"
+    marks = [e[0] for e in victim[7]]
+    assert marks[0] == "SUBMIT" and marks[-1] == "FINISH"
+    assert {"QUEUED", "PREFILL", "DECODE"} <= {r[0] for r in rec}
+    ttft = tracer.metrics.histogram("serve_ttft_seconds")
+    assert ttft.count(tenant="research", qos="scavenger") == 2
