@@ -52,7 +52,17 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
 8. train consistency — loss and gradients of one full-width microbatch
    through the kernels and the plain versions, in f32 (held close) and in
    bf16 (held to the f32 run), with the bf16 gap's parameters listed.
-9. summary — the kernels line, then the device line last.
+9. cluster — the paper's job-script workflow through the port's cluster
+   layer in real mode (``repro_torch.cluster``): a one-host inventory of
+   the card is provisioned and validated; a scavenger job trains
+   full-width mamba2-780m as phase 7 does, checkpointing every 2 steps,
+   to step 2; a high-QOS job serving full-width stablelm-3b (4 requests,
+   16-line pages) preempts it; it requeues with the store's step as
+   progress and resumes from its checkpoint to step 4; fail on a job
+   that did not exit 0, a missing preemption or requeue, losses at steps
+   1-4 not bit-identical to phase 7's, too little disk for the
+   checkpoints, or a kernel of either job never launched.
+10. summary — the kernels line, then the device line last.
 
 Exits non-zero on any failure, and when no card is present.
 """
@@ -591,7 +601,7 @@ def serve_phase(cfg, params, paged: bool, args, device="cuda",
     used = ["flash_attention", "flash_decode_paged" if paged
             else "flash_decode"]
     for name in used:
-        if launches[name] == 0 and device == "cuda":
+        if launches[name] == 0 and torch.device(device).type == "cuda":
             raise AssertionError(f"{kind}: kernel {name} never launched on "
                                  "the serving path")
     return {"launches": launches, "tok_s": total / wall, "wall_s": wall}
@@ -1194,6 +1204,214 @@ def train_consistency_phase(cfg, args, device="cuda") -> dict:
     return {"loss": out, "tol_loss": tol_l, "tol_grad": tol_g}
 
 
+# -------------------------------------------------------------- cluster ----
+
+def cluster_phase(tcfg, targs, scfg, sargs, reference, devices=None) -> dict:
+    """The paper's §5.2.4 job-script workflow through the port's cluster
+    layer in real mode, on a one-host inventory of the card(s): a
+    scavenger job trains ``tcfg`` as phase 7 does (same seed, batches and
+    options) to step ``2 * (requeue_count + 1)``, checkpointing every 2
+    steps; at virtual t=600 s a high-QOS job that serves 4 requests of
+    ``scfg`` (bf16, random weights, 16-line pages) preempts it; the
+    training job requeues with the store's step as progress and, once the
+    serve job ends, resumes from its checkpoint at step 3.  ``reference``
+    holds phase 7's losses by step (index = step - 1); the job's losses
+    must equal them bit for bit (the same seed, batches and options, the
+    f32 state restored exactly).  The launch counts are set to 0 before
+    each cluster action (submit, submit, run) and read after it; the
+    phase's counts are their sums.  ``devices`` (default: every CUDA
+    device) goes to ``mesh_for_job``."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.cluster import (
+        ClusterSpec, HostSpec, JobState, PartitionSpec, provision, validate,
+    )
+    from repro_torch.cluster import commands as C
+    from repro_torch.cluster.meshbridge import mesh_for_job
+    from repro_torch.configs import InputShape, RunConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.models.model import cast_for_compute
+    from repro_torch.monitoring import Tracer
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.training import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count() if devices is None else len(devices)
+    spec = ClusterSpec("h100", (HostSpec("gpu-00", gres=(("gpu", n),)),),
+                       (PartitionSpec("gpu", ("gpu-00",), default=True),))
+    cluster = provision(spec, real_mode=True)
+    report = validate(cluster, spec)
+    log("  " + str(report).replace("\n", "\n  "))
+    if not report.ok:
+        raise AssertionError("cluster: the inventory failed validation")
+    cluster.tracer = Tracer()
+    log("  sinfo:\n    " + C.sinfo(cluster).replace("\n", "\n    "))
+
+    B, S, micro = targs["batch"], targs["seq_len"], targs["microbatches"]
+    run = RunConfig(use_kernels=True, remat="layer", microbatches=micro)
+    times: dict = {"save": [], "restore": []}
+
+    def train_script(job, alloc):
+        device = mesh_for_job(cluster, job, devices=devices).devices.flat[0]
+        trainer = Trainer(tcfg, run, InputShape("cluster", S, B, "train"),
+                          OptimizerConfig(), TrainerConfig(
+                              steps=2 * (job.requeue_count + 1),
+                              ckpt_every=2, ckpt_dir=job.checkpoint_dir,
+                              seed=SEED), device=device)
+        save = trainer.save
+
+        def timed_save():
+            t0 = time.perf_counter()
+            save()
+            times["save"].append(time.perf_counter() - t0)
+        trainer.save = timed_save
+        trainer.init_state()
+        sync(device)
+        t0 = time.perf_counter()
+        resumed = trainer.maybe_resume()
+        sync(device)
+        if resumed:
+            times["restore"].append(time.perf_counter() - t0)
+        if resumed != (job.requeue_count > 0):
+            raise RuntimeError(f"incarnation {job.requeue_count + 1}: "
+                               f"resumed={resumed}")
+        start = trainer.step
+        trainer.train(log=lambda *_: None)
+        for h in trainer.history:
+            log(f"  train job {job.job_id} on {alloc[0]} ({device}), "
+                f"incarnation {job.requeue_count + 1}: step {h['step']} "
+                f"loss {h['loss']:.6f}, {h['sec']:.3f} s")
+        return {"start": start, "history": [
+            {k: h[k] for k in ("step", "loss", "sec")}
+            for h in trainer.history]}
+
+    def serve_script(job, alloc):
+        device = mesh_for_job(cluster, job, devices=devices).devices.flat[0]
+        t0 = time.perf_counter()
+        params = cast_for_compute(init_params(scfg, SEED, device),
+                                  torch.bfloat16)
+        sync(device)
+        load_s = time.perf_counter() - t0
+        r = serve_phase(scfg, params, True, dict(sargs, requests=4),
+                        device=device, label=f"serve job {job.job_id} on "
+                        f"{alloc[0]} ({device}), paged")
+        return dict(r, load_s=load_s)
+
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    first_device = devices[0] if devices else "cuda"
+
+    def counted(action):
+        gc.collect()
+        torch.cuda.empty_cache()
+        sync(first_device)
+        ops.reset_launch_counts()
+        out = action()
+        sync(first_device)
+        for name, k in ops.launch_counts().items():
+            launches[name] += k
+        return out
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        # two checkpoints (steps 2 and 4) of f32 params + f32 AdamW m, v
+        need = 2 * 3 * 4 * tcfg.param_count()
+        free = shutil.disk_usage(ckpt_dir).free
+        log(f"  checkpoint dir {ckpt_dir}: {free / 1e9:.1f} GB free, the "
+            f"job writes 2 x {need / 2e9:.2f} GB")
+        if free < need + 2**30:
+            raise AssertionError(
+                f"cluster: {ckpt_dir} has {free / 1e9:.1f} GB free; the "
+                f"training job's two checkpoints need {need / 1e9:.1f} GB "
+                "(set TMPDIR to a larger disk)")
+        log("  " + counted(lambda: C.sbatch(
+            cluster, name="mamba2-train", gres="gpu:1", time="02:00:00",
+            run_time_s=3600, qos="scavenger", script=train_script,
+            checkpoint_dir=ckpt_dir)))
+        (train,) = [j for j in cluster.jobs.values()
+                    if j.name == "mamba2-train"]
+        if train.exit_code != 0:
+            raise AssertionError(f"cluster: training job {train.job_id} "
+                                 f"failed: {train.comment}")
+        first = train.result          # the next incarnation replaces it
+        cluster.clock = 600.0
+        log("  " + counted(lambda: C.sbatch(
+            cluster, name="stablelm-serve", gres="gpu:1", time="00:10:00",
+            run_time_s=120, qos="high", script=serve_script)))
+        (serve,) = [j for j in cluster.jobs.values()
+                    if j.name == "stablelm-serve"]
+        if serve.exit_code != 0:
+            raise AssertionError(f"cluster: serve job {serve.job_id} "
+                                 f"failed: {serve.comment}")
+        track = ("cluster:root", f"job {train.job_id}")
+        states = [sp for sp in cluster.tracer.spans(cat="state", track=track)]
+        states += [sp for sp in cluster.tracer.open_spans()
+                   if sp.cat == "state" and sp.track == track]
+        log("  squeue:\n    " + C.squeue(cluster).replace("\n", "\n    "))
+        log("  sprio:\n    " + C.sprio(cluster).replace("\n", "\n    "))
+        names = [sp.name for sp in states]
+        log(f"  train job {train.job_id}: {train.state.name}, requeue_count "
+            f"{train.requeue_count}, progress_s {train.progress_s} (the "
+            f"store's latest step), state spans {names}, last reason "
+            f"{states[-1].attrs.get('reason')!r}")
+        if (train.state != JobState.PENDING or train.requeue_count != 1
+                or train.progress_s != 2.0
+                or names != ["PENDING", "RUNNING", "PREEMPTED", "PENDING"]
+                or states[-1].attrs.get("reason") != "Requeued"):
+            raise AssertionError("cluster: the training job was not "
+                                 "preempted and requeued with progress 2")
+        stuck = counted(cluster.run)
+        if stuck:
+            raise AssertionError(f"cluster: jobs {stuck} never ran")
+        failed = [j for j in cluster.jobs.values() if j.exit_code != 0]
+        if failed:
+            raise AssertionError("cluster: " + "; ".join(
+                f"job {j.job_id} ({j.name}) exit {j.exit_code}: {j.comment}"
+                for j in failed))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log("  sacct:\n    " + C.sacct(cluster).replace("\n", "\n    "))
+    log("  sshare:\n    " + C.sshare(cluster).replace("\n", "\n    "))
+    log("  sdiag:\n    " + C.sdiag(cluster=cluster).replace("\n", "\n    "))
+    segments = [r.state for r in cluster.accounting
+                if r.job_id == train.job_id]
+    if segments != ["PREEMPTED", "COMPLETED"]:
+        raise AssertionError(f"cluster: training job segments {segments}")
+    if train.result["start"] != 2 or serve.state != JobState.COMPLETED:
+        raise AssertionError("cluster: the training job did not resume at "
+                             "step 3, or the serve job did not complete")
+    # both incarnations' losses against phase 7's uninterrupted run
+    train_hist = first["history"] + train.result["history"]
+    rows, worst, identical = [], 0.0, True
+    for h in train_hist:
+        want = reference[h["step"] - 1]
+        rel = abs(h["loss"] - want) / abs(want)
+        worst = max(worst, rel)
+        identical &= h["loss"] == want
+        rows.append(f"step {h['step']} {h['loss']!r} vs {want!r} "
+                    f"(rel {rel:.3e})")
+    log("  losses vs phase 7: " + "; ".join(rows) + (
+        " — bit-identical" if identical else f" — max rel {worst:.3e}"))
+    if [h["step"] for h in train_hist] != [1, 2, 3, 4] or not identical:
+        raise AssertionError("cluster: the job's losses are not phase 7's "
+                             "uninterrupted ones bit for bit")
+    wall = time.perf_counter() - t_phase
+    ssm_layers = sum(k == "ssm" for k in tcfg.layer_kinds())
+    want = 4 * micro * ssm_layers * 2        # 4 steps, remat reruns
+    on_card = torch.device(first_device).type == "cuda"
+    log(f"  phase {wall:.1f} s; checkpoint save {times['save']} s, restore "
+        f"{times['restore']} s; serve job {serve.result['tok_s']:.1f} tok/s "
+        f"(weights {serve.result['load_s']:.2f} s); launches {launches}")
+    if on_card and (launches["ssd_scan"] != want or not all(
+            launches[k] for k in ("flash_attention", "flash_decode_paged"))):
+        raise AssertionError(f"cluster: launches {launches}, expected "
+                             f"ssd_scan {want} and the serve job's "
+                             "attention kernels")
+    return {"launches": launches, "wall_s": wall}
+
+
 # ----------------------------------------------------------------- main ----
 
 def main(argv=None) -> int:
@@ -1223,12 +1441,12 @@ def main(argv=None) -> int:
         """Seconds since the start, for the phase headers."""
         return f"at {time.perf_counter() - t_start:.1f} s"
 
-    log(f"[1/9] device: {smi} | torch {torch.__version__} cuda "
+    log(f"[1/10] device: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     build.build_all(verbose=True)
-    log(f"[2/9] build: kernels built in {time.perf_counter() - t0:.1f} s "
+    log(f"[2/10] build: kernels built in {time.perf_counter() - t0:.1f} s "
         f"({build.BUILD_ROOT / build.source_hash()})")
 
     cfg = get_config("stablelm-3b")
@@ -1236,7 +1454,7 @@ def main(argv=None) -> int:
     targs = dict(batch=4, microbatches=2, seq_len=2048, steps=4)
     shape = dict(H=cfg.num_heads, K=cfg.num_kv_heads, Dh=cfg.head_dim,
                  slots=4, cache_len=512, prefill_len=128)
-    log(f"[3/9] {at()}: kernels vs plain versions (tolerance bf16 "
+    log(f"[3/10] {at()}: kernels vs plain versions (tolerance bf16 "
         f"{TOL[torch.bfloat16]}, f32 {TOL[torch.float32]}; times: median "
         "of 20 launches, L2 flushed, queued behind a sleep: device time "
         "only):")
@@ -1249,7 +1467,7 @@ def main(argv=None) -> int:
         return 0
     grad_phase()
 
-    log(f"[4/9] {at()}: serve: full-width {cfg.name} ({cfg.num_layers} "
+    log(f"[4/10] {at()}: serve: full-width {cfg.name} ({cfg.num_layers} "
         f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads x "
         f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), random "
         f"weights seed {SEED}, bf16 compute")
@@ -1271,14 +1489,14 @@ def main(argv=None) -> int:
     profiles = {kind: profile_phase(cfg, params, args, kind == "paged")
                 for kind in ("dense", "paged")}
 
-    log(f"[5/9] {at()}: serve modes: full-width {cfg.name}, bf16, "
+    log(f"[5/10] {at()}: serve modes: full-width {cfg.name}, bf16, "
         f"{args['slots']} slots, cache {args['cache_len']}, 16-line pages, "
         f"decode chunk {args['decode_chunk']}, {args['requests']} requests "
         f"of {args['max_new']} tokens a run")
     modes = serve_modes_phase(cfg, params, args)
     plain_paths_phase(cfg, params, args)
 
-    log(f"[6/9] {at()}: consistency at full width (kernels vs plain "
+    log(f"[6/10] {at()}: consistency at full width (kernels vs plain "
         "versions):")
     consistency_phase(cfg, params)
     del params
@@ -1289,7 +1507,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     ssm = tcfg.ssm
-    log(f"[7/9] {at()}: train: full-width {tcfg.name} ({tcfg.num_layers} "
+    log(f"[7/10] {at()}: train: full-width {tcfg.name} ({tcfg.num_layers} "
         f"layers, d_model {tcfg.d_model}, {ssm.num_heads(tcfg.d_model)} SSD "
         f"heads x {ssm.head_dim}, state {ssm.state}, chunk {ssm.chunk}, vocab "
         f"{tcfg.vocab_size}), f32 weights seed {SEED}, bf16 compute, f32 "
@@ -1298,9 +1516,15 @@ def main(argv=None) -> int:
     train = train_phase(tcfg, targs, kernels["ssd_scan"]["ms"])
     torch.cuda.empty_cache()
 
-    log(f"[8/9] {at()}: train consistency at full width (kernels vs plain "
+    log(f"[8/10] {at()}: train consistency at full width (kernels vs plain "
         "vs f32):")
     train_consistency_phase(tcfg, targs)
+    torch.cuda.empty_cache()
+
+    log(f"[9/10] {at()}: cluster: a scavenger job trains {tcfg.name} as "
+        f"phase 7 does, a high-QOS job serving {cfg.name} preempts it, it "
+        "requeues and resumes from its checkpoint")
+    clus = cluster_phase(tcfg, targs, cfg, args, train["losses"])
 
     # the main path's serve runs: the f32 4-layer identity runs are a
     # check, not the path, and log their launches on their own line
@@ -1309,21 +1533,24 @@ def main(argv=None) -> int:
                 for name in ("flash_attention", "flash_decode",
                              "flash_decode_paged")}
     launches["ssd_scan"] = train["launches"]["ssd_scan"]
+    for name in launches:
+        launches[name] += clus["launches"][name]
     summary = {name: {"max_abs_err": r["max_abs_err"],
                       "launches": launches[name]}
                for name, r in kernels.items()}
     mode_rates = ", ".join(f"{label} {r['tok_s']:.1f}"
                            for label, r in modes.items())
-    log(f"[9/9] summary ({time.perf_counter() - t_start:.1f} s; serve "
+    log(f"[10/10] summary ({time.perf_counter() - t_start:.1f} s; serve "
         f"dense {dense['tok_s']:.1f} tok/s, paged {paged['tok_s']:.1f} "
         f"tok/s; modes {mode_rates} tok/s; decode kernel per token step "
         f"dense "
         f"{profiles['dense']['decode_ms_per_step']} ms, paged "
         f"{profiles['paged']['decode_ms_per_step']} ms; train "
         f"{train['tok_s']:,.0f} tok/s, {train['step_s']:.3f} s/step, peak "
-        f"{train['peak_gib']:.2f} GiB; attention launches summed over "
-        "the bf16 serve runs (dense, paged, the four modes), ssd_scan over "
-        "the kept train steps)")
+        f"{train['peak_gib']:.2f} GiB; cluster phase {clus['wall_s']:.1f} "
+        "s, losses bit-identical to phase 7's; launches summed over the "
+        "main path: the bf16 serve runs (dense, paged, the four modes), "
+        "the kept train steps and the cluster phase's two jobs)")
     log("kernels " + json.dumps(summary))
     log(smi)
     line = {"kernels": [dict(name=name, route=r["route"], source=r["source"],

@@ -20,6 +20,7 @@ import time
 
 import numpy as np
 
+from repro_torch.cluster.commands import sdiag
 from repro_torch.configs import ARCH_IDS, RunConfig, get_config, \
     get_reduced_config
 from repro_torch.device import resolve_device
@@ -176,7 +177,8 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", default="", metavar="OUT_JSON",
                     help="record request-lifecycle spans, write a Chrome "
                          "trace-event JSON (Perfetto, chrome://tracing) "
-                         "and print the SLO report")
+                         "and print sdiag's admission, serve-step, "
+                         "speculation and SLO sections")
     ap.add_argument("--tenants", default="",
                     help="tenant:shares list, e.g. alice:8,bob:1 "
                          "(empty: single default tenant)")
@@ -301,7 +303,7 @@ def main(argv=None) -> int:
         data = tracer.export_chrome(args.trace)
         print(f"trace: {len(data['traceEvents'])} events -> {args.trace} "
               f"(load in ui.perfetto.dev)")
-        print(tracer.slo.format_report())
+        print(sdiag(admission=admission, tracer=tracer, engine=engine))
     return 0
 
 

@@ -12,7 +12,7 @@ the per-request story:
   side table until ended.
 * **One timeline, two workloads** — the serving engine emits
   SUBMIT/QUEUED/ADMIT/PREFILL/DECODE/PREEMPT/RESUME/FINISH request spans
-  and the cluster engine (the JAX package's ``repro.cluster``) emits job
+  and the cluster engine (``repro_torch.cluster``) emits job
   PENDING/RUNNING/PREEMPTED/COMPLETED spans into the *same* tracer, so a
   single trace shows batch jobs and serving requests contending for the
   shared ledger.

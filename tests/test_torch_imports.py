@@ -54,14 +54,14 @@ def test_port_imports_without_jax_repro_or_triton(tmp_path):
         [str(ROOT / "src" / "repro_torch")])}
     for pkg in ("configs", "models", "kernels", "policy", "monitoring",
                 "serving", "launch", "data", "optim", "training",
-                "checkpoint"):
+                "checkpoint", "cluster"):
         assert f"repro_torch.{pkg}" in out["modules"]
     assert want <= set(out["modules"])
     for mod in ("kernels.ssd_scan", "models.ssm", "models.inputs", "tree",
                 "data.pipeline", "optim.adamw", "training.train_step",
                 "training.trainer", "checkpoint.store", "launch.train",
                 "configs.mamba2_780m", "monitoring.trace", "serving.prefix",
-                "serving.spec"):
+                "serving.spec", "cluster.meshbridge", "cluster.cli"):
         assert f"repro_torch.{mod}" in out["modules"]
     assert not (tmp_path / "build").exists()
 
