@@ -12,9 +12,11 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
    kernels/csrc`` (one ``nvcc`` per source, in parallel).
 3. kernels — hold each kernel against its plain PyTorch version on the
    card, at the serving path's shapes (full-width stablelm-3b), a GQA
-   shape at qwen2-7b widths, a ring-window case and a paged case with
-   null pages, in bf16 and f32; the SSD scan at the training path's
-   shape (full-width mamba2-780m), the JAX package's ``SSD_CASES``, a
+   shape at qwen2-7b widths, the families phase's MHA at Dh 128
+   (qwen2-moe-a2.7b) and 12 query heads a kv head (starcoder2-3b), a
+   ring-window case and a paged case with null pages, in bf16 and f32;
+   the SSD scan at the training path's shape (full-width mamba2-780m),
+   the JAX package's ``SSD_CASES``, a
    chunk that ``_pick_block`` shrinks and a chunk whose decays span the
    f32 range, on inputs strided as the training path gives them, against
    its chunked plain version and the token-by-token oracle; time kernel,
@@ -62,7 +64,23 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
    that did not exit 0, a missing preemption or requeue, losses at steps
    1-4 not bit-identical to phase 7's, too little disk for the
    checkpoints, or a kernel of either job never launched.
-10. summary — the kernels line, then the device line last.
+10. families — the other model families through ``DecodeEngine`` at
+   full width, 4 slots: mamba2-780m (SSM serving, one wave of 4 requests,
+   dense cache; fail on any kernel launch, since the SSM serve path has
+   none), then its greedy tokens with front-padded bucketed prefill
+   against exact prefill in f32 with the depth cut to 4 layers (a
+   difference passes only as a tie); qwen2-moe-a2.7b (bf16 weights: one
+   wave on the dense cache, one on 16-line pages, then n-gram speculation
+   with k = 4 on 4 prompts each asked twice, the second wave drafting
+   from the first; fail if a kernel of a run's path never launched, or on
+   fewer verify rounds or proposals than the second wave needs), then in
+   f32 with the depth cut to 4 layers one request's prefill and 4 decode
+   steps through the kernels against the plain versions, where bf16
+   rounding cannot flip a router; starcoder2-3b (24 query heads over 2 kv
+   heads, one wave, dense cache).  Every run logs tok/s, prefill and
+   decode-call means, launches and peak memory; each model then goes
+   through the consistency check of phase 6.
+11. summary — the kernels line, then the device line last.
 
 Exits non-zero on any failure, and when no card is present.
 """
@@ -70,6 +88,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -93,6 +112,10 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # the training consistency check in f32: the kernel and plain routes sum
 # the same terms in another order (f32 rounding, ~1e-7 relative a step)
 F32_LOSS_TOL, F32_GRAD_TOL = 1e-4, 1e-3
+# serving logits in f32 through the kernels against the plain versions,
+# relative to the logits' largest magnitude (the same sums in another
+# order through a few layers; a wrong kernel is off by a large share)
+F32_LOGIT_TOL = 1e-4
 SEED = 0
 
 
@@ -234,6 +257,12 @@ def kernel_phase(shape_cfg) -> dict:
               # 32): buckets of 8 to cache_len tokens
               (1, 32, 2, 2, 32, None, bf16), (1, 64, 2, 2, 32, None, f32),
               (1, cache_len, 2, 2, 32, None, bf16)]
+    # the families phase's prefills: qwen2-moe-a2.7b (MHA, 16 heads of
+    # 128) and starcoder2-3b (24 query heads over 2 kv heads of 128)
+    for h, k in ((16, 16), (24, 2)):
+        cases += [(1, 128, h, k, 128, None, bf16),
+                  (1, cache_len, h, k, 128, None, bf16),
+                  (1, 100, h, k, 128, None, f32)]
     for B, S, h, k, d, window, dt in cases:
         q, kk, v = (rand(gen, (B, S, n, d), dt) for n in (h, k, k))
         got = fa.flash_attention_bshd(q, kk, v, window=window)
@@ -248,6 +277,11 @@ def kernel_phase(shape_cfg) -> dict:
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True)
+
+    def gqa_sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
 
     q, kk, v = (rand(gen, (1, L, n, Dh), bf16) for n in (H, K, K))
     ms = time_ms(lambda: fa.flash_attention_bshd(q, kk, v))
@@ -271,6 +305,16 @@ def kernel_phase(shape_cfg) -> dict:
         f"{time_ms(lambda: fa.flash_attention_bshd(q2, k2, v2)):.4f} ms, "
         f"SDPA {time_ms(lambda: sdpa(q2, k2, v2)):.4f} ms (bound "
         f"{b_n:.4f} ms, {by_n})")
+    # the families phase's prefill heads, for the record: qwen2-moe-a2.7b
+    # (16 of 128, MHA) and starcoder2-3b (24 over 2 of 128)
+    for h, k in ((16, 16), (24, 2)):
+        qf, kf, vf = (rand(gen, (1, L, n, 128), bf16) for n in (h, k, k))
+        b_f, by_f = bound_ms(2 * (2 * L * h * 128 + 2 * L * k * 128),
+                             4 * 128 * h * L * (L + 1) / 2, bf16)
+        log(f"  flash_attention at q(1,{L},{h},128) kv {k}: "
+            f"{time_ms(lambda: fa.flash_attention_bshd(qf, kf, vf)):.4f} "
+            f"ms, SDPA {time_ms(lambda: gqa_sdpa(qf, kf, vf)):.4f} ms "
+            f"(bound {b_f:.4f} ms, {by_f})")
 
     # ---- flash_decode: dense cache (and the ring) ------------------------
     errs = []
@@ -309,6 +353,12 @@ def kernel_phase(shape_cfg) -> dict:
               (slots, cache_len, 2, 2, 32, None, bf16, bf16, positions),
               (slots, cache_len, 2, 2, 32, None, f32, bf16, positions),
               (slots, cache_len, 2, 2, 32, None, f32, f32, edges)]
+    # the families phase's decodes: qwen2-moe-a2.7b's MHA at Dh 128 and
+    # starcoder2-3b's 12 query heads a kv head
+    for h, k in ((16, 16), (24, 2)):
+        dcases += [(slots, cache_len, h, k, 128, None, bf16, bf16, positions),
+                   (slots, cache_len, h, k, 128, None, f32, f32, positions),
+                   (slots, cache_len, h, k, 128, None, bf16, bf16, edges)]
     for B, S, h, k, d, window, qdt, kvdt, pos in dcases:
         q = rand(gen, (B, 1, h, d), qdt)
         # a head_dim that does not fill 16 bytes sits in a padded line, so
@@ -359,6 +409,21 @@ def kernel_phase(shape_cfg) -> dict:
             q4.transpose(1, 2), k4.transpose(1, 2), v4.transpose(1, 2)))
         log(f"  flash_decode at ({B4},4096): {t4:.4f} ms, SDPA {lib4:.4f} "
             f"ms (bound {b4:.4f} ms, {by4})")
+    # the families phase's decode heads, for the record
+    for h, k in ((16, 16), (24, 2)):
+        qf = rand(gen, (slots, 1, h, 128), bf16)
+        kf, vf = (rand(gen, (slots, cache_len, k, 128), bf16)
+                  for _ in range(2))
+        b_f, by_f = bound_ms(
+            2 * (slots * cache_len * 2 * k * 128 + 2 * slots * h * 128)
+            + 4 * slots, 4 * h * 128 * lines, bf16)
+        t_f = time_ms(lambda: fd.flash_decode_bshd(qf, kf, vf, full))
+        lib_f = time_ms(lambda: F.scaled_dot_product_attention(
+            qf.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2),
+            enable_gqa=True))
+        log(f"  flash_decode at q({slots},1,{h},128) cache "
+            f"({slots},{cache_len},{k},128): {t_f:.4f} ms, SDPA "
+            f"{lib_f:.4f} ms (bound {b_f:.4f} ms, {by_f})")
 
     # ---- flash_decode_paged ----------------------------------------------
     errs = []
@@ -374,7 +439,13 @@ def kernel_phase(shape_cfg) -> dict:
     pcases = [(H, K, Dh, bf16, bf16, table_null, positions),
               (H, K, Dh, f32, f32, table_null, positions),
               (H, K, Dh, f32, bf16, table_full, positions),
-              (28, 4, 128, bf16, bf16, table_null, positions)]
+              (28, 4, 128, bf16, bf16, table_null, positions),
+              # qwen2-moe-a2.7b's paged and speculation runs; starcoder2's
+              # 12-way groups
+              (16, 16, 128, bf16, bf16, table_null, positions),
+              (16, 16, 128, f32, f32, table_null, positions),
+              (24, 2, 128, bf16, bf16, table_null, positions),
+              (24, 2, 128, f32, f32, table_full, positions)]
     for h, k, d, qdt, kvdt, table, pos in pcases:
         q = rand(gen, (slots, 1, h, d), qdt)
         kp, vp = (rand(gen, (num_pages, ps, k, d), kvdt) for _ in range(2))
@@ -612,7 +683,8 @@ def serve_phase(cfg, params, paged: bool, args, device="cuda",
 #: the engine's serving modes the serve-modes phase drives, each on its own
 #: request set ("prefix": 8 prompts behind a shared 64-token system prompt;
 #: "serve": the serve phase's requests; "repeat": 8 prompts of a repeated
-#: 8-token pattern, greedy)
+#: 8-token pattern, greedy; "twice", for the families phase: the "repeat"
+#: prompts, each asked twice)
 SERVE_MODES = (
     ("prefix cache", "prefix", dict(prefix_cache=True)),
     ("budgeted, 64 tokens", "serve", dict(max_batch_tokens=64)),
@@ -639,11 +711,19 @@ def mode_requests(cfg, kind: str, args, greedy=False) -> list:
                 max_new_tokens=args["max_new"],
                 temperature=0.0 if greedy else float(rid % 2) * 0.8))
     else:
-        for rid in range(args["requests"]):
+        n = args["requests"]
+        for rid in range(n):
             pattern = rng.integers(2, cfg.vocab_size, 8).astype(np.int32)
             requests.append(Request(
                 rid=rid, prompt=np.tile(pattern, 3 + rid % 4),
                 max_new_tokens=args["max_new"]))
+        if kind == "twice":
+            # each prompt asked again after it: with as many slots as
+            # prompts the second wave starts once the first has finished,
+            # whose sequences the cross-request n-gram index then holds
+            requests += [Request(rid=n + q.rid, prompt=q.prompt,
+                                 max_new_tokens=q.max_new_tokens)
+                         for q in requests]
     return requests
 
 
@@ -659,10 +739,11 @@ def f32_lines(engine):
 
 def run_mode(cfg, params, args, kind: str, options: dict, greedy=False,
              device="cuda") -> dict:
-    """One engine (paged, 16-line pages, the serve phase's slots, cache
-    and decode chunk) with ``options`` on its request set, the launch
-    counts set to 0 just before and read just after.  With ``greedy``
-    (the identity check) the KV lines are f32 (:func:`f32_lines`)."""
+    """One engine (paged, 16-line pages unless ``options`` says otherwise,
+    the serve phase's slots, cache and decode chunk) with ``options`` on
+    its request set, the launch counts set to 0 and the peak memory reset
+    just before, both read just after.  With ``greedy`` (the identity
+    check) the KV lines are f32 (:func:`f32_lines`)."""
     from repro_torch.kernels import ops
     from repro_torch.monitoring import MetricsRegistry
     from repro_torch.monitoring.metrics import (
@@ -675,13 +756,15 @@ def run_mode(cfg, params, args, kind: str, options: dict, greedy=False,
     engine = DecodeEngine(cfg, params, num_slots=args["slots"],
                           cache_len=args["cache_len"], metrics=metrics,
                           seed=SEED, decode_chunk=args["decode_chunk"],
-                          prefill_buckets="auto", kv_page_size=16,
-                          device=device, **options)
+                          prefill_buckets="auto", device=device,
+                          **{"kv_page_size": 16, **options})
     if greedy:
         f32_lines(engine)
     for r in requests:
         engine.submit(r)
     sync(device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     engine.run_to_completion()
@@ -703,8 +786,34 @@ def run_mode(cfg, params, args, kind: str, options: dict, greedy=False,
                 METRIC_SERVE_PREFIX_REUSED_TOKENS).value()),
             "chunks": engine.serve_stats["prefill_chunks"],
             "rounds": st["rounds"], "proposed": st["proposed"],
-            "accepted": st["accepted"],
+            "accepted": st["accepted"], "peak_gib": peak_gib(device),
+            "buckets": engine.prefill_buckets,
             "outputs": [list(r.output) for r in requests]}
+
+
+def check_run(cfg, label, r, args, device, must=(), never=()):
+    """Gates of a serve run: every request finished with its token count,
+    in the vocabulary; on the card each kernel of ``must`` launched and
+    none of ``never``."""
+    reqs = r["requests"]
+    want = sum(q.max_new_tokens - 1 for q in reqs)
+    if not all(q.done and len(q.output) == q.max_new_tokens
+               for q in reqs) or r["tokens"] != want:
+        raise AssertionError(f"{label}: expected {want} decode tokens "
+                             f"and {args['max_new']} per request, got "
+                             f"{r['tokens']}")
+    if not all(0 <= t < cfg.vocab_size for q in reqs for t in q.output):
+        raise AssertionError(f"{label}: token out of vocabulary")
+    if torch.device(device).type != "cuda":
+        return
+    for name in must:
+        if r["launches"][name] == 0:
+            raise AssertionError(f"{label}: kernel {name} never launched")
+    for name in never:
+        if r["launches"][name]:
+            raise AssertionError(f"{label}: kernel {name} launched "
+                                 f"{r['launches'][name]} times on a path "
+                                 "that has no kernel")
 
 
 def serve_modes_phase(cfg, params, args, device="cuda") -> dict:
@@ -718,7 +827,6 @@ def serve_modes_phase(cfg, params, args, device="cuda") -> dict:
     for label, kind, options in SERVE_MODES:
         r = run_mode(cfg, params, args, kind, options, device=device)
         reqs = r["requests"]
-        want = sum(q.max_new_tokens - 1 for q in reqs)
         rate = (f"{r['accepted'] / r['proposed']:.1%}" if r["proposed"]
                 else "n/a")
         log(f"  {label}: {len(reqs)} requests, {r['tokens']} decode tokens "
@@ -729,13 +837,6 @@ def serve_modes_phase(cfg, params, args, device="cuda") -> dict:
             f"{r['reused']}; chunks {r['chunks']}; verify rounds "
             f"{r['rounds']}, accepted {r['accepted']}/{r['proposed']} "
             f"({rate}); launches {r['launches']}")
-        if not all(q.done and len(q.output) == q.max_new_tokens
-                   for q in reqs) or r["tokens"] != want:
-            raise AssertionError(f"{label}: expected {want} decode tokens "
-                                 f"and {args['max_new']} per request, got "
-                                 f"{r['tokens']}")
-        if not all(0 <= t < cfg.vocab_size for q in reqs for t in q.output):
-            raise AssertionError(f"{label}: token out of vocabulary")
         # the kernels each path runs: paged decode wherever decode_n runs,
         # prefill attention on the classic prefills of prefix misses, the
         # draft model's prefill and dense decode.  With the model draft
@@ -747,10 +848,7 @@ def serve_modes_phase(cfg, params, args, device="cuda") -> dict:
             used = ["flash_decode_paged", "flash_attention"]
         else:
             used = ["flash_decode_paged"]
-        for name in used:
-            if r["launches"][name] == 0 and device == "cuda":
-                raise AssertionError(f"{label}: kernel {name} never "
-                                     "launched")
+        check_run(cfg, label, r, args, device, must=used)
         if "prefix_cache" in options and r["hits"] == 0:
             raise AssertionError(f"{label}: no prefix hit")
         if "max_batch_tokens" in options and r["chunks"] <= len(reqs):
@@ -919,7 +1017,7 @@ def profile_phase(cfg, params, args, paged: bool,
         f"{len(spans)} device kernels ({len(spans) / chunk:.0f} per token "
         "step)" if spans else
         "device time not measured (the trace holds no device events)")
-    log(f"  profile: one {kind} decode chunk ({chunk} tokens x "
+    log(f"  profile ({cfg.name}): one {kind} decode chunk ({chunk} tokens x "
         f"{args['slots']} slots, ~{int(engine.pos.mean())} live lines): wall "
         f"{wall_ms:.2f} ms, {device_part}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
@@ -928,7 +1026,7 @@ def profile_phase(cfg, params, args, paged: bool,
     # in this trace is `kernel`
     decode = [(n, us) for n, us in by_name.items() if "decode_kernel" in n]
     step_ms = None
-    if spans:
+    if spans and decode:
         us = sum(us for _, us in decode)
         n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
                 and "decode_kernel" in e.name)
@@ -940,57 +1038,68 @@ def profile_phase(cfg, params, args, paged: bool,
             "decode_ms_per_step": step_ms}
 
 
-def consistency_phase(cfg, params, device="cuda") -> dict:
-    """Prefill logits and three decode steps of one request through the
-    kernels against the plain versions, both in bf16, with an f32 run of
-    the same (bf16-valued) weights as the yardstick.  The kernel route
-    must stay within 0.05 + 2x the plain route's own distance from the
-    f32 run."""
+def route_logits(cfg, params, toks, use_kernels: bool, steps: int,
+                 device="cuda") -> torch.Tensor:
+    """Logits of one prompt's prefill (its last position) and of
+    ``steps`` teacher-forced decode steps after it, (steps + 1, vocab) in
+    f32.  Every leaf of the prefill's cache (attention K/V lines, SSM
+    state and conv window) goes into a fresh 256-line cache first, as the
+    engine's ``_insert_dense`` does."""
     from repro_torch.configs import RunConfig
     from repro_torch.models.model import decode_step, init_cache, prefill
-    from repro_torch.models.model import cast_for_compute
 
-    rng = np.random.default_rng(SEED + 1)
-    P, steps = 77, 3
-    toks = torch.from_numpy(rng.integers(2, cfg.vocab_size, P).astype(
-        np.int32)).to(device)[None]
-    f32cfg = dataclasses.replace(cfg, dtype="float32")
-    runs = {}
+    P = toks.shape[1]
+    run = RunConfig(use_kernels=use_kernels)
     with torch.no_grad():
-        for name, c, p, use_k in (
-                ("kernels", cfg, params, True),
-                ("plain", cfg, params, False),
-                ("f32", f32cfg, cast_for_compute(params, torch.float32),
-                 False)):
-            run = RunConfig(use_kernels=use_k)
-            logits, c1 = prefill(p, {"tokens": toks}, c, run, cache_len=256)
-            cache = init_cache(c, 1, 256, device=device)
-            for dst, src in zip(cache["layers"], c1["layers"]):
-                for kv in ("k", "v"):
-                    dst[kv][:, 0, :P].copy_(src[kv][:, 0])
-            seq = [logits[0, -1].float()]
-            tok = toks[:, -1:]
-            for s in range(steps):
-                # teacher-forced: every route feeds the same tokens
-                tok = torch.full((1, 1), 11 + 7 * s, dtype=torch.int32,
-                                 device=device)
-                lg, cache = decode_step(p, cache, tok,
-                                        torch.tensor([P + s], device=device),
-                                        c, run)
-                seq.append(lg[0, -1].float())
-            runs[name] = torch.stack(seq)
-            del p
-    for name, r in runs.items():
-        if not bool(torch.isfinite(r).all()) or r.shape != (
-                steps + 1, cfg.vocab_size):
-            raise AssertionError(f"consistency: {name} logits not finite "
-                                 f"or of shape {tuple(r.shape)}")
+        logits, c1 = prefill(params, {"tokens": toks}, cfg, run,
+                             cache_len=256)
+        cache = init_cache(cfg, 1, 256, device=device)
+        for dst, src in zip(cache["layers"], c1["layers"]):
+            for name, leaf in src.items():
+                dst[name][:, 0, :leaf.shape[2]].copy_(leaf[:, 0])
+        seq = [logits[0, -1].float()]
+        for s in range(steps):
+            # teacher-forced: every route feeds the same tokens
+            tok = torch.full((1, 1), 11 + 7 * s, dtype=torch.int32,
+                             device=device)
+            lg, cache = decode_step(params, cache, tok,
+                                    torch.tensor([P + s], device=device),
+                                    cfg, run)
+            seq.append(lg[0, -1].float())
+    out = torch.stack(seq)
+    if not bool(torch.isfinite(out).all()) or out.shape != (
+            steps + 1, cfg.vocab_size):
+        raise AssertionError(f"consistency: {cfg.name} logits not finite "
+                             f"or of shape {tuple(out.shape)}")
+    return out
+
+
+def consistency_prompt(cfg, device, P=77) -> torch.Tensor:
+    rng = np.random.default_rng(SEED + 1)
+    return torch.from_numpy(rng.integers(2, cfg.vocab_size, P).astype(
+        np.int32)).to(device)[None]
+
+
+def consistency_phase(cfg, params, device="cuda", steps=3) -> dict:
+    """Prefill logits and ``steps`` decode steps of one request through
+    the kernels against the plain versions, both in bf16, with an f32 run
+    of the same (bf16-valued) weights as the yardstick (cast at each use,
+    as the model casts them: no f32 copy of the weights).  The kernel
+    route must stay within 0.05 + 2x the plain route's own distance from
+    the f32 run.  Every route's logits must be finite."""
+    toks = consistency_prompt(cfg, device)
+    f32cfg = dataclasses.replace(cfg, dtype="float32")
+    runs = {name: route_logits(c, params, toks, use_k, steps, device)
+            for name, c, use_k in (("kernels", cfg, True),
+                                   ("plain", cfg, False),
+                                   ("f32", f32cfg, False))}
     d_kp = max_err(runs["kernels"], runs["plain"])
     d_k32 = max_err(runs["kernels"], runs["f32"])
     d_p32 = max_err(runs["plain"], runs["f32"])
     tol = 0.05 + 2 * d_p32
     scale = float(runs["f32"].abs().max())
-    log(f"  prefill + {steps} decode steps, logits max|f32| {scale:.3f}: "
+    log(f"  {cfg.name}: prefill + {steps} decode steps, logits max|f32| "
+        f"{scale:.3f}: "
         f"|kernels - plain| {d_kp:.4f}, |kernels - f32| {d_k32:.4f}, "
         f"|plain - f32| {d_p32:.4f} (tol on |kernels - f32|: {tol:.4f})")
     argmax_same = bool((runs["kernels"].argmax(-1)
@@ -1001,6 +1110,43 @@ def consistency_phase(cfg, params, device="cuda") -> dict:
                              f"f32 run, tolerance {tol}")
     return {"kernels_vs_plain": d_kp, "kernels_vs_f32": d_k32,
             "plain_vs_f32": d_p32}
+
+
+def f32_consistency_phase(cfg, device="cuda", layers=4, steps=4) -> dict:
+    """The kernels against the plain versions in f32 compute with the
+    depth cut to ``layers`` (f32 weights of the seed): one request's
+    prefill and ``steps`` decode steps, |kernels - plain| held to
+    ``F32_LOGIT_TOL`` of the logits' scale.  For a model whose bf16
+    routes can part at a router's top-k (MoE), where the bf16 check of
+    :func:`consistency_phase` cannot tell a wrong kernel from a flip."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+
+    c = dataclasses.replace(cfg, num_layers=layers, dtype="float32")
+    params = init_params(c, SEED, device)
+    toks = consistency_prompt(c, device)
+    ops.reset_launch_counts()
+    kern = route_logits(c, params, toks, True, steps, device)
+    launches = ops.launch_counts()
+    plain = route_logits(c, params, toks, False, steps, device)
+    del params
+    d = max_err(kern, plain)
+    scale = float(plain.abs().max())
+    tol = F32_LOGIT_TOL * scale
+    argmax_same = bool((kern.argmax(-1) == plain.argmax(-1)).all())
+    log(f"  {cfg.name}, f32, {layers} layers: prefill + {steps} decode "
+        f"steps, logits max|plain| {scale:.3f}: |kernels - plain| "
+        f"{d:.3e} (tol {tol:.3e}); argmax agrees at every step: "
+        f"{argmax_same}; launches {launches} (a check, not the main path)")
+    if torch.device(device).type == "cuda":
+        for name in ("flash_attention", "flash_decode"):
+            if launches[name] == 0:
+                raise AssertionError(f"f32 consistency: {name} never "
+                                     "launched on the kernel route")
+    if d > tol:
+        raise AssertionError(f"f32 consistency: {cfg.name} kernel route "
+                             f"{d} from the plain route, tolerance {tol}")
+    return {"kernels_vs_plain": d, "tol": tol, "argmax_same": argmax_same}
 
 
 # ------------------------------------------------------------- training ----
@@ -1204,6 +1350,198 @@ def train_consistency_phase(cfg, args, device="cuda") -> dict:
     return {"loss": out, "tol_loss": tol_l, "tol_grad": tol_g}
 
 
+# ------------------------------------------------------------- families ----
+
+def peak_gib(device) -> float:
+    if torch.device(device).type != "cuda":
+        return float("nan")
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def family_run(cfg, params, args, kind, label, device="cuda", must=(),
+               never=(), **options) -> dict:
+    """One run of the families phase: :func:`run_mode` on the ``kind``
+    requests with ``options`` (dense unless they page), logged, with
+    :func:`check_run`'s gates."""
+    r = dict(run_mode(cfg, params, args, kind,
+                      {"kv_page_size": 0, **options}, device=device),
+             label=label)
+    log(f"  {label}: {len(r['requests'])} requests, {r['tokens']} decode "
+        f"tokens in {r['wall_s']:.3f} s = {r['tok_s']:.1f} tok/s; prefill "
+        f"mean {r['prefill_ms']:.2f} ms over {r['prefills']}; decode or "
+        f"verify call mean {r['decode_ms']:.2f} ms over {r['calls']}; "
+        f"verify rounds {r['rounds']}, accepted {r['accepted']}/"
+        f"{r['proposed']}; prefill buckets {r['buckets']}; peak "
+        f"{r['peak_gib']:.2f} GiB (max_memory_allocated); launches "
+        f"{r['launches']}")
+    check_run(cfg, label, r, args, device, must=must, never=never)
+    return r
+
+
+def ssm_bucket_identity(cfg, args, device="cuda", layers=4) -> dict:
+    """Greedy tokens of front-padded bucketed prefill against exact
+    prefill for an SSM config, in f32 with the depth cut to ``layers``:
+    the plain route (``use_kernels=False``, so the engine takes the front
+    pad) with the single bucket ``cache_len``, whose prompts of at most
+    ``cache_len - chunk`` tokens get a chunk-aligned front pad ``f > 0``.
+    A difference passes only as a tie: the exact run's top-2 logit gap at
+    the first differing token below 1e-4."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.models import init_params
+    from repro_torch.models.model import cast_for_compute
+
+    c = dataclasses.replace(cfg, num_layers=layers, dtype="float32")
+    params = cast_for_compute(init_params(c, SEED, device), torch.float32)
+    from repro_torch.serving import DecodeEngine
+
+    run = RunConfig(use_kernels=False)
+    outs = {}
+    for kind, buckets in (("exact", None), ("bucketed", (args["cache_len"],))):
+        reqs = serve_requests(c, args, greedy=True)
+        eng = DecodeEngine(c, params, num_slots=args["slots"],
+                           cache_len=args["cache_len"], seed=SEED,
+                           decode_chunk=args["decode_chunk"], run=run,
+                           prefill_buckets=buckets, device=device)
+        if (buckets is not None) != eng._front_pad:
+            raise AssertionError(f"{cfg.name}: the {kind} engine did not "
+                                 "take the front pad it should")
+        for r in reqs:
+            eng.submit(r)
+        eng.run_to_completion()
+        outs[kind] = (reqs, [list(r.output) for r in reqs])
+    Q, L = cfg.ssm.chunk, args["cache_len"]
+    pads = [((L - len(r.prompt)) // Q) * Q for r in outs["exact"][0]]
+    same = ties = 0
+    for q, a, b in zip(outs["exact"][0], outs["exact"][1],
+                       outs["bucketed"][1]):
+        if a == b:
+            same += 1
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        gap = top2_gap(c, params, q.prompt, a[:j], device)
+        log(f"  request {q.rid} differs at token {j} ({a[j]} exact, {b[j]} "
+            f"bucketed); exact top-2 gap {gap:.3e}")
+        if gap >= 1e-4:
+            raise AssertionError(f"{cfg.name}: bucketed prefill differs "
+                                 f"from exact at request {q.rid} token {j} "
+                                 f"with a top-2 gap of {gap}")
+        ties += 1
+    log(f"  f32, {layers} layers: {same}/{len(pads)} requests token for "
+        f"token equal, bucketed (front pads {pads}) against exact; ties "
+        f"{ties}")
+    if not any(pads):
+        raise AssertionError(f"{cfg.name}: no request took a front pad")
+    return {"same": same, "ties": ties, "pads": pads}
+
+
+def families_phase(args, device="cuda", reduced=False) -> dict:
+    """The other model families through the serving engine, at full
+    width (``reduced``: the reduced configs, for a rehearsal on the CPU):
+    SSM serving of mamba2-780m (no kernel on its path; then its f32
+    bucketed-vs-exact check), MoE serving of qwen2-moe-a2.7b (dense,
+    16-line pages, n-gram speculation over two waves; then the kernels
+    against the plain versions on one request in f32 at 4 layers) and
+    starcoder2-3b (24 query heads over 2 kv heads); each model through
+    :func:`consistency_phase`.  Returns the runs, whose launches are
+    main-path launches."""
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.models import init_params
+    from repro_torch.models.model import cast_for_compute
+
+    get = get_reduced_config if reduced else get_config
+    attn = ("flash_attention", "flash_decode", "flash_decode_paged")
+    runs, profiles = [], {}
+    # the cluster phase's trainer sits in a reference cycle (its wrapped
+    # save): collect it before measuring what these models hold
+    gc.collect()
+    empty_cache(device)
+    if torch.device(device).type == "cuda":
+        log(f"  resident before the phase: "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    def describe(cfg):
+        return (f"{cfg.name} ({cfg.param_count() / 1e9:.3f} B params, "
+                f"{cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
+                f"{cfg.vocab_size})")
+
+    # ---- SSM: mamba2-780m, f32 weights, bf16 compute
+    cfg = get("mamba2-780m")
+    log(f"  {describe(cfg)}: f32 weights seed {SEED}, bf16 compute, "
+        f"{args['slots']} slots, cache {args['cache_len']}, dense cache")
+    params = init_params(cfg, SEED, device)
+    runs.append(family_run(cfg, params, args, "serve", f"{cfg.name} dense",
+                           device, never=attn + ("ssd_scan",)))
+    profiles[cfg.name] = profile_phase(cfg, params, args, False, device)
+    cons = {cfg.name: consistency_phase(
+        cfg, cast_for_compute(params, torch.bfloat16), device, steps=4)}
+    del params
+    empty_cache(device)
+    ident = ssm_bucket_identity(cfg, args, device)
+    empty_cache(device)
+
+    # ---- MoE: qwen2-moe-a2.7b, built in bf16 (f32 and a bf16 copy would
+    # not both fit): the same numbers as f32 weights cast once
+    cfg = get("qwen2-moe-a2.7b")
+    bcfg = dataclasses.replace(cfg, param_dtype="bfloat16")
+    moe = cfg.moe
+    log(f"  {describe(cfg)}: {moe.num_experts} experts top-{moe.top_k} + "
+        f"{moe.num_shared} shared, {cfg.num_heads} heads of "
+        f"{cfg.head_dim}; bf16 weights seed {SEED}")
+    params = init_params(bcfg, SEED, device)
+    sync(device)
+    if torch.device(device).type == "cuda":
+        log(f"  params {torch.cuda.memory_allocated() / 2**30:.2f} GiB on "
+            "the card")
+    k = 4
+    for label, options, must in (
+            ("dense", {}, ("flash_attention", "flash_decode")),
+            ("paged (16-line pages)", dict(kv_page_size=16),
+             ("flash_attention", "flash_decode_paged")),
+            (f"speculation, n-gram, k {k}",
+             dict(kv_page_size=16, speculate=k),
+             ("flash_attention", "flash_decode_paged"))):
+        kind = "twice" if "speculate" in options else "serve"
+        r = family_run(cfg, params, args, kind, f"{cfg.name} {label}",
+                       device, must=must, never=("ssd_scan",), **options)
+        # the second wave's requests draft from the first wave's
+        # sequences: at least one round of k proposals each
+        second = len(r["requests"]) // 2
+        if "speculate" in options and (r["rounds"] < second
+                                       or r["proposed"] < second * k):
+            raise AssertionError(
+                f"{cfg.name} {label}: {r['rounds']} verify rounds, "
+                f"{r['proposed']} proposals; the second wave of {second} "
+                f"requests needs at least {second} and {second * k}")
+        runs.append(r)
+    profiles[cfg.name] = profile_phase(cfg, params, args, False, device)
+    cons[cfg.name] = consistency_phase(cfg, params, device, steps=4)
+    del params
+    empty_cache(device)
+    cons[f"{cfg.name} f32"] = f32_consistency_phase(cfg, device)
+    empty_cache(device)
+
+    # ---- dense GQA: starcoder2-3b, 24 query heads over 2 kv heads
+    cfg = get("starcoder2-3b")
+    log(f"  {describe(cfg)}: {cfg.num_heads} q heads over "
+        f"{cfg.num_kv_heads} kv heads of {cfg.head_dim}, {cfg.mlp_type}, "
+        f"qkv bias; bf16 weights seed {SEED}")
+    params = init_params(dataclasses.replace(cfg, param_dtype="bfloat16"),
+                         SEED, device)
+    runs.append(family_run(cfg, params, args, "serve", f"{cfg.name} dense",
+                           device, must=("flash_attention", "flash_decode"),
+                           never=("ssd_scan",)))
+    cons[cfg.name] = consistency_phase(cfg, params, device, steps=4)
+    del params
+    empty_cache(device)
+    return {"runs": runs, "identity": ident, "consistency": cons,
+            "profiles": profiles}
+
+
+def empty_cache(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
 # -------------------------------------------------------------- cluster ----
 
 def cluster_phase(tcfg, targs, scfg, sargs, reference, devices=None) -> dict:
@@ -1221,7 +1559,6 @@ def cluster_phase(tcfg, targs, scfg, sargs, reference, devices=None) -> dict:
     each cluster action (submit, submit, run) and read after it; the
     phase's counts are their sums.  ``devices`` (default: every CUDA
     device) goes to ``mesh_for_job``."""
-    import gc
     import shutil
     import tempfile
 
@@ -1441,12 +1778,12 @@ def main(argv=None) -> int:
         """Seconds since the start, for the phase headers."""
         return f"at {time.perf_counter() - t_start:.1f} s"
 
-    log(f"[1/10] device: {smi} | torch {torch.__version__} cuda "
+    log(f"[1/11] device: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     build.build_all(verbose=True)
-    log(f"[2/10] build: kernels built in {time.perf_counter() - t0:.1f} s "
+    log(f"[2/11] build: kernels built in {time.perf_counter() - t0:.1f} s "
         f"({build.BUILD_ROOT / build.source_hash()})")
 
     cfg = get_config("stablelm-3b")
@@ -1454,7 +1791,7 @@ def main(argv=None) -> int:
     targs = dict(batch=4, microbatches=2, seq_len=2048, steps=4)
     shape = dict(H=cfg.num_heads, K=cfg.num_kv_heads, Dh=cfg.head_dim,
                  slots=4, cache_len=512, prefill_len=128)
-    log(f"[3/10] {at()}: kernels vs plain versions (tolerance bf16 "
+    log(f"[3/11] {at()}: kernels vs plain versions (tolerance bf16 "
         f"{TOL[torch.bfloat16]}, f32 {TOL[torch.float32]}; times: median "
         "of 20 launches, L2 flushed, queued behind a sleep: device time "
         "only):")
@@ -1467,7 +1804,7 @@ def main(argv=None) -> int:
         return 0
     grad_phase()
 
-    log(f"[4/10] {at()}: serve: full-width {cfg.name} ({cfg.num_layers} "
+    log(f"[4/11] {at()}: serve: full-width {cfg.name} ({cfg.num_layers} "
         f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads x "
         f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), random "
         f"weights seed {SEED}, bf16 compute")
@@ -1489,14 +1826,14 @@ def main(argv=None) -> int:
     profiles = {kind: profile_phase(cfg, params, args, kind == "paged")
                 for kind in ("dense", "paged")}
 
-    log(f"[5/10] {at()}: serve modes: full-width {cfg.name}, bf16, "
+    log(f"[5/11] {at()}: serve modes: full-width {cfg.name}, bf16, "
         f"{args['slots']} slots, cache {args['cache_len']}, 16-line pages, "
         f"decode chunk {args['decode_chunk']}, {args['requests']} requests "
         f"of {args['max_new']} tokens a run")
     modes = serve_modes_phase(cfg, params, args)
     plain_paths_phase(cfg, params, args)
 
-    log(f"[6/10] {at()}: consistency at full width (kernels vs plain "
+    log(f"[6/11] {at()}: consistency at full width (kernels vs plain "
         "versions):")
     consistency_phase(cfg, params)
     del params
@@ -1507,7 +1844,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     ssm = tcfg.ssm
-    log(f"[7/10] {at()}: train: full-width {tcfg.name} ({tcfg.num_layers} "
+    log(f"[7/11] {at()}: train: full-width {tcfg.name} ({tcfg.num_layers} "
         f"layers, d_model {tcfg.d_model}, {ssm.num_heads(tcfg.d_model)} SSD "
         f"heads x {ssm.head_dim}, state {ssm.state}, chunk {ssm.chunk}, vocab "
         f"{tcfg.vocab_size}), f32 weights seed {SEED}, bf16 compute, f32 "
@@ -1516,19 +1853,27 @@ def main(argv=None) -> int:
     train = train_phase(tcfg, targs, kernels["ssd_scan"]["ms"])
     torch.cuda.empty_cache()
 
-    log(f"[8/10] {at()}: train consistency at full width (kernels vs plain "
+    log(f"[8/11] {at()}: train consistency at full width (kernels vs plain "
         "vs f32):")
     train_consistency_phase(tcfg, targs)
     torch.cuda.empty_cache()
 
-    log(f"[9/10] {at()}: cluster: a scavenger job trains {tcfg.name} as "
+    log(f"[9/11] {at()}: cluster: a scavenger job trains {tcfg.name} as "
         f"phase 7 does, a high-QOS job serving {cfg.name} preempts it, it "
         "requeues and resumes from its checkpoint")
     clus = cluster_phase(tcfg, targs, cfg, args, train["losses"])
+    torch.cuda.empty_cache()
+
+    log(f"[10/11] {at()}: families: SSM serving of mamba2-780m, MoE "
+        f"serving of qwen2-moe-a2.7b, starcoder2-3b; full width, "
+        f"{args['slots']} slots, cache {args['cache_len']}, one wave of 4 "
+        f"requests of {args['max_new']} tokens a run (two for n-gram "
+        f"speculation), decode chunk {args['decode_chunk']}")
+    fam = families_phase(dict(args, requests=4))
 
     # the main path's serve runs: the f32 4-layer identity runs are a
     # check, not the path, and log their launches on their own line
-    serve_runs = [dense, paged, *modes.values()]
+    serve_runs = [dense, paged, *modes.values(), *fam["runs"]]
     launches = {name: sum(r["launches"][name] for r in serve_runs)
                 for name in ("flash_attention", "flash_decode",
                              "flash_decode_paged")}
@@ -1540,7 +1885,9 @@ def main(argv=None) -> int:
                for name, r in kernels.items()}
     mode_rates = ", ".join(f"{label} {r['tok_s']:.1f}"
                            for label, r in modes.items())
-    log(f"[10/10] summary ({time.perf_counter() - t_start:.1f} s; serve "
+    fam_rates = ", ".join(f"{r['label']} {r['tok_s']:.1f}"
+                          for r in fam["runs"])
+    log(f"[11/11] summary ({time.perf_counter() - t_start:.1f} s; serve "
         f"dense {dense['tok_s']:.1f} tok/s, paged {paged['tok_s']:.1f} "
         f"tok/s; modes {mode_rates} tok/s; decode kernel per token step "
         f"dense "
@@ -1548,9 +1895,10 @@ def main(argv=None) -> int:
         f"{profiles['paged']['decode_ms_per_step']} ms; train "
         f"{train['tok_s']:,.0f} tok/s, {train['step_s']:.3f} s/step, peak "
         f"{train['peak_gib']:.2f} GiB; cluster phase {clus['wall_s']:.1f} "
-        "s, losses bit-identical to phase 7's; launches summed over the "
-        "main path: the bf16 serve runs (dense, paged, the four modes), "
-        "the kept train steps and the cluster phase's two jobs)")
+        f"s, losses bit-identical to phase 7's; families {fam_rates} "
+        "tok/s; launches summed over the main path: the bf16 serve runs "
+        "(dense, paged, the four modes, the families' five runs), the kept "
+        "train steps and the cluster phase's two jobs)")
     log("kernels " + json.dumps(summary))
     log(smi)
     line = {"kernels": [dict(name=name, route=r["route"], source=r["source"],

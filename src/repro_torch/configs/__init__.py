@@ -6,6 +6,7 @@ from repro_torch.configs.base import (
     MoEConfig,
     RunConfig,
     SSMConfig,
+    default_opt_state_dtype,
     get_config,
     get_reduced_config,
     shape_for,
@@ -13,6 +14,6 @@ from repro_torch.configs.base import (
 
 __all__ = [
     "ARCH_IDS", "INPUT_SHAPES", "InputShape", "ModelConfig", "MoEConfig",
-    "RunConfig", "SSMConfig", "get_config", "get_reduced_config",
-    "shape_for",
+    "RunConfig", "SSMConfig", "default_opt_state_dtype", "get_config",
+    "get_reduced_config", "shape_for",
 ]

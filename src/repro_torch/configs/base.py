@@ -3,8 +3,8 @@ package's ``configs/base.py``, trimmed to what the port runs).
 
 Every ported architecture gets one ``<arch>.py`` in this package exporting
 ``CONFIG: ModelConfig`` with the exact published dimensions, plus a
-``reduced()`` variant used by CPU tests (2 layers, d_model<=512 — same
-family, same code paths).
+``reduced()`` variant used by CPU tests (2 layers, d_model<=512, <=4
+experts — same family, same code paths).
 """
 from __future__ import annotations
 
@@ -140,17 +140,26 @@ class RunConfig:
 
     ``microbatches`` splits a training batch for gradient accumulation;
     ``remat`` ("none" | "layer" | "full") recomputes each layer group's
-    activations in the backward pass (``torch.utils.checkpoint``)."""
+    activations in the backward pass (``torch.utils.checkpoint``);
+    ``opt_state_dtype`` is the AdamW moments' dtype, which the trainer
+    CLI passes to ``OptimizerConfig.state_dtype``."""
     use_kernels: bool = False
     microbatches: int = 1
     remat: str = "layer"
+    opt_state_dtype: str = "float32"
 
 
-#: architectures with a config module in the port (the JAX package has ten)
 ARCH_IDS = [
+    "jamba-1.5-large-398b",
+    "starcoder2-3b",
+    "pixtral-12b",
+    "qwen2-moe-a2.7b",
+    "musicgen-large",
     "qwen2-7b",
     "stablelm-3b",
     "mamba2-780m",
+    "dbrx-132b",
+    "minitron-4b",
 ]
 
 
@@ -168,6 +177,11 @@ def get_reduced_config(arch_id: str) -> ModelConfig:
     mod = importlib.import_module(
         f"repro_torch.configs.{_module_name(arch_id)}")
     return mod.reduced()
+
+
+def default_opt_state_dtype(cfg: ModelConfig) -> str:
+    """The AdamW moments' dtype by default: bf16 above 100B parameters."""
+    return "bfloat16" if cfg.param_count() > 100e9 else "float32"
 
 
 def shape_for(cfg: ModelConfig, shape: InputShape) -> ModelConfig:

@@ -14,7 +14,8 @@ from __future__ import annotations
 import argparse
 
 from repro_torch.configs import (
-    ARCH_IDS, INPUT_SHAPES, get_config, get_reduced_config, shape_for,
+    ARCH_IDS, INPUT_SHAPES, default_opt_state_dtype, get_config,
+    get_reduced_config, shape_for,
 )
 from repro_torch.configs.base import InputShape, RunConfig
 from repro_torch.device import resolve_device
@@ -57,16 +58,19 @@ def main(argv=None) -> int:
         ap.error("use repro_torch.launch.serve for decode shapes")
     cfg = shape_for(cfg, shape)
     run = RunConfig(use_kernels=True, remat="layer",
-                    microbatches=args.microbatches)
+                    microbatches=args.microbatches,
+                    opt_state_dtype=default_opt_state_dtype(cfg))
     opt = OptimizerConfig(peak_lr=args.lr,
                           warmup_steps=max(args.steps // 10, 1),
-                          decay_steps=args.steps)
+                          decay_steps=args.steps,
+                          state_dtype=run.opt_state_dtype)
     tcfg = TrainerConfig(steps=args.steps, ckpt_dir=args.ckpt_dir or None,
                          ckpt_every=args.ckpt_every)
     metrics = MetricsRegistry()
     print(f"training {cfg.name} ({cfg.param_count():,} params) on {device} "
           f"seq {shape.seq_len} batch {shape.global_batch} in "
-          f"{args.microbatches} microbatch(es)")
+          f"{args.microbatches} microbatch(es), {run.opt_state_dtype} "
+          "AdamW state")
     trainer = Trainer(cfg, run, shape, opt, tcfg, metrics, device=device)
     trainer.train()
     print("\n== metrics ==")

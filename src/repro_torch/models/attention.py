@@ -81,33 +81,47 @@ def out_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------- blockwise causal core ----
 
-def _attend_block(q, k, v, q_pos, kv_pos, window, scale):
+def _attend_block(q, k, v, q_pos, kv_pos, window, scale, kv_valid=None):
     """q: (B,qb,K,G,Dh)  k/v: (B,S,K,Dh)  -> (B,qb,K,G,Dh).
 
     Softmax over the full kv range with causal (+ window) masking, f32
-    logits/softmax; a query whose kv range masks out completely stays
-    NaN-free because ``_NEG_INF`` is finite."""
+    logits/softmax.  ``kv_valid`` ((S,) bool) excludes pad kv lines
+    entirely (front-padded prefill); a query whose kv range masks out
+    completely stays NaN-free because ``_NEG_INF`` is finite — its
+    softmax is uniform and its output is never consumed."""
     logits = torch.einsum("bqkgd,bskd->bkgqs", q, k).to(f32) * scale
     mask = kv_pos[None, :] <= q_pos[:, None]                 # causal
     if window is not None:
         mask &= (q_pos[:, None] - kv_pos[None, :]) < window  # sliding window
+    if kv_valid is not None:
+        mask &= kv_valid[None, :]
     logits = torch.where(mask, logits, _NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bkgqs,bskd->bqkgd", probs, v)
 
 
-def causal_attention(q, k, v, cfg: ModelConfig, q_block: int = 512):
+def causal_attention(q, k, v, cfg: ModelConfig, q_block: int = 512,
+                     positions: Optional[torch.Tensor] = None,
+                     kv_valid: Optional[torch.Tensor] = None):
     """q: (B,S,H,Dh), k/v: (B,S,K,Dh) -> (B,S,H,Dh).  Full/sliding causal,
-    q-block chunked so the (S, S) logits are never materialised at once."""
+    q-block chunked so the (S, S) logits are never materialised at once.
+
+    ``positions`` ((S,) int) replaces ``arange(S)`` in the causal mask and
+    ``kv_valid`` ((S,) bool) excludes pad kv lines for every query
+    (front-padded bucketed prefill).  ``kv_valid`` forces one block, as
+    in the JAX version: the q-block loop derives each block's positions
+    from ``arange``."""
     B, S, H, Dh = q.shape
     K = k.shape[2]
     G = H // K
     scale = Dh ** -0.5
     window = cfg.sliding_window
     qg = q.reshape(B, S, K, G, Dh)
-    kv_pos = torch.arange(S, device=q.device)
-    if S <= q_block:
-        o = _attend_block(qg, k, v, kv_pos, kv_pos, window, scale)
+    kv_pos = torch.arange(S, device=q.device) if positions is None \
+        else positions
+    if S <= q_block or kv_valid is not None:
+        o = _attend_block(qg, k, v, kv_pos, kv_pos, window, scale,
+                          kv_valid=kv_valid)
         return o.reshape(B, S, H, Dh)
     assert S % q_block == 0, (S, q_block)
     # under autograd each block is checkpointed, as the JAX scan body is:
@@ -167,7 +181,10 @@ def init_kv_cache(cfg: ModelConfig, batch: int, cache_len: int,
 # --------------------------------------------------------------- prefill ----
 
 def attention_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                      cache_slots: int, use_kernels: bool = False):
+                      cache_slots: int, use_kernels: bool = False,
+                      positions: Optional[torch.Tensor] = None,
+                      valid: Optional[torch.Tensor] = None,
+                      roll: Optional[int] = None):
     """Prefill: full causal attention + the populated KV lines.
 
     Returns (out (B,S,d), {"k","v"}).  When ``cache_slots >= S`` the lines
@@ -176,20 +193,42 @@ def attention_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
     the lines past them stay masked at decode until overwritten.  When
     ``cache_slots < S`` (sliding-window ring) the last ``cache_slots``
     positions are kept, laid out at ring indices ``pos % cache_slots``.
+
+    ``positions``/``valid``/``roll`` serve front-padded bucketed prefill
+    (hybrid configs, whose SSM sublayers need the real tokens
+    chunk-aligned): ``positions`` ((S,) int, negative on the front pad)
+    replaces ``arange(S)`` for RoPE and the causal mask, ``valid`` ((S,)
+    bool) masks pad kv out of every query, and ``roll`` (the front-pad
+    width) rotates the returned lines so the real tokens land at lines
+    ``[0, num_real)``, where an unpadded prefill writes them.  The plain
+    path runs then: the flash kernel takes no validity mask (the engine
+    refuses front-padded buckets under ``run.use_kernels``).
     """
     B, S, _ = x.shape
     q, k, v = qkv_proj(p, x, cfg)
     if cfg.pos_embedding == "rope":
-        pos = torch.arange(S, device=x.device)
+        pos = torch.arange(S, device=x.device) if positions is None \
+            else positions
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-    if use_kernels:
+    if valid is not None:
+        assert not use_kernels, \
+            "front-padded prefill has no kernel path (the flash kernel " \
+            "takes no kv-validity mask)"
+        o = causal_attention(q, k, v, cfg, positions=positions,
+                             kv_valid=valid)
+    elif use_kernels:
         o = kops.flash_attention(q, k, v, window=cfg.sliding_window)
     else:
         o = causal_attention(q, k, v, cfg)
     if cache_slots >= S:
         ck, cv = k, v
+        if roll is not None:
+            ck = torch.roll(k, -int(roll), dims=1)
+            cv = torch.roll(v, -int(roll), dims=1)
     else:
+        assert roll is None, \
+            "front-padded prefill is gated off sliding-window ring caches"
         # last `slots` positions, placed at ring index pos % slots
         idx = torch.arange(S - cache_slots, S, device=x.device) % cache_slots
         ck = torch.zeros_like(k[:, :cache_slots])

@@ -1,6 +1,6 @@
-"""Model assembly: embedding -> layer groups -> LM head — the port of the
-JAX package's ``models/model.py`` for training (dense attention and SSM
-configs) and for serving (dense attention configs).
+"""Model assembly: embedding/frontends -> layer groups -> LM head — the
+port of the JAX package's ``models/model.py`` for every model family
+(dense attention, SSM, hybrid, MoE, the vision and audio stubs).
 
 Entry points (plain functions of (params, inputs, cache)):
   * ``forward_train(params, batch, cfg, run)``  -> (logits, aux)
@@ -18,9 +18,13 @@ Parameters are the JAX package's tree: layer groups stacked on dim 0 with
 period ``group_period(cfg)``; a Python loop over groups replaces
 ``lax.scan``; under ``run.remat`` ("layer" or "full") each group runs
 inside ``torch.utils.checkpoint`` as the JAX scan body runs inside
-``jax.checkpoint``.  Decode updates the KV cache in place.
-``run.use_kernels`` routes attention and the SSD scan through the CUDA
-kernels (``kernels.ops``).
+``jax.checkpoint``.  Decode updates the KV cache and the SSM state in
+place.  ``run.use_kernels`` routes attention and the training SSD scan
+through the CUDA kernels (``kernels.ops``).
+
+Modality frontends (vision/audio) are stubs, as in the JAX package: the
+batch carries precomputed prefix/frame embeddings and this module
+consumes them.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import attention as A
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.init import torch_dtype
 from repro_torch.models.mlp import mlp_apply, rmsnorm
@@ -58,14 +63,6 @@ def cast_for_compute(params, dtype: torch.dtype):
     return params.to(dtype)
 
 
-def _check_dense(cfg: ModelConfig):
-    if any(mixer != "attn" or ffn != "dense"
-           for mixer, ffn in layer_schedule(cfg)):
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs dense attention configs; SSM, "
-            "hybrid and MoE layers come with a later slice")
-
-
 def _take(tree, g: int):
     """The group-``g`` slice of a stacked parameter or cache tree (views)."""
     if isinstance(tree, dict):
@@ -86,18 +83,23 @@ def embed_tokens(params, tokens, cfg: ModelConfig):
 
 
 def build_hidden(params, batch: dict, cfg: ModelConfig):
-    """Input hidden states from tokens (+ sinusoidal PE for configs that
-    use it).  The modality stubs of the JAX version wait for their
-    families."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend stub comes with the "
-            "VLM/audio slice (ROADMAP A3)")
-    h = embed_tokens(params, batch["tokens"], cfg)
+    """Input hidden states from tokens and/or stub embeddings: the VLM
+    stub's ``prefix_embeddings`` and the audio stub's
+    ``frame_embeddings`` go ahead of the tokens, and sinusoidal PE spans
+    the whole length."""
+    dtype = compute_dtype(cfg)
+    parts = []
+    if "prefix_embeddings" in batch:                 # vlm: ViT stub output
+        parts.append(batch["prefix_embeddings"].to(dtype))
+    if "frame_embeddings" in batch:                  # audio: codec stub
+        parts.append(batch["frame_embeddings"].to(dtype))
+    if "tokens" in batch:
+        parts.append(embed_tokens(params, batch["tokens"], cfg))
+    h = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     if cfg.pos_embedding == "sinusoidal":
         S = h.shape[1]
         pe = A.sinusoidal_pe(torch.arange(S, device=h.device), cfg.d_model)
-        h = h + pe.to(h.dtype)[None]
+        h = h + pe.to(dtype)[None]
     return h
 
 
@@ -122,12 +124,14 @@ def sublayer_train(p, x, mixer: str, ffn: str, cfg: ModelConfig,
     else:
         h = SSM.ssm_train(p["ssm"], h, cfg, use_kernels=run.use_kernels)
     x = x + h
-    if ffn == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers come with the MoE slice (ROADMAP A3)")
     if ffn != "none":
         h = rmsnorm(x, p["norm2"]["scale"], cfg.norm_eps)
-        x = x + mlp_apply(p["mlp"], h, cfg.mlp_type)
+        if ffn == "moe":
+            h, moe_aux = MOE.moe_apply(p["moe"], h, cfg)
+            aux = {k: aux[k] + moe_aux[k] for k in AUX_KEYS}
+        else:
+            h = mlp_apply(p["mlp"], h, cfg.mlp_type)
+        x = x + h
     return x, aux
 
 
@@ -182,34 +186,68 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, run: RunConfig):
         mask = torch.ones(batch["labels"].shape, dtype=torch.float32,
                           device=logits.device)
     xent = softmax_xent(logits, batch["labels"], mask)
-    metrics = {"loss": xent, "xent": xent, **aux}
-    return xent, metrics
+    loss = xent
+    if cfg.moe is not None:
+        loss = (loss + cfg.moe.balance_coef * aux["moe_balance_loss"]
+                + cfg.moe.router_z_coef * aux["moe_z_loss"])
+    metrics = {"loss": loss, "xent": xent, **aux}
+    return loss, metrics
 
 
 # ----------------------------------------------------------------- cache ----
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None,
                paging=None):
-    """Decode cache: one entry per sublayer slot, stacked over groups.
-    ``paging`` makes every attention sublayer a shared page pool."""
-    _check_dense(cfg)
+    """Decode cache: one entry per sublayer slot, stacked over groups —
+    ``{"k", "v"}`` for an attention sublayer, ``{"state", "conv"}`` for
+    an SSM one.  ``paging`` makes every attention sublayer a shared page
+    pool; it is full-attention only (SSM state is not line-addressable),
+    so callers gate on ``cfg.ssm is None``."""
     P = group_period(cfg)
     n_groups = cfg.num_layers // P
-    return {"layers": [A.init_kv_cache(cfg, batch, cache_len, n_groups,
-                                       device=device, paging=paging)
-                       for _ in range(P)]}
+    layers = []
+    for mixer, _ in layer_schedule(cfg)[:P]:
+        if mixer == "attn":
+            layers.append(A.init_kv_cache(cfg, batch, cache_len, n_groups,
+                                          device=device, paging=paging))
+        else:
+            assert paging is None, "paged KV cache is attention-only"
+            layers.append(SSM.init_ssm_cache(cfg, batch, n_groups,
+                                             device=device))
+    return {"layers": layers}
 
 
 # --------------------------------------------------------------- prefill ----
 
-def _ffn(p, x, cfg: ModelConfig):
+def _ffn(p, x, ffn: str, cfg: ModelConfig):
+    """The sublayer's FFN half (dense, MoE or none) with its residual."""
+    if ffn == "none":
+        return x
     hh = rmsnorm(x, p["norm2"]["scale"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], hh, cfg.mlp_type)
+    if ffn == "moe":
+        hh, _ = MOE.moe_apply(p["moe"], hh, cfg)
+    else:
+        hh = mlp_apply(p["mlp"], hh, cfg.mlp_type)
+    return x + hh
+
+
+def _stack_caches(per_group: list) -> list:
+    """[group][slot] cache dicts -> per slot, each leaf stacked over the
+    groups."""
+    return [{name: torch.stack([g[i][name] for g in per_group])
+             for name in per_group[0][i]}
+            for i in range(len(per_group[0]))]
+
+
+def _attn_only(cfg: ModelConfig) -> bool:
+    return all(mixer == "attn" for mixer, _ in layer_schedule(cfg))
 
 
 def prefill(params, batch: dict, cfg: ModelConfig, run: RunConfig,
             cache_len: Optional[int] = None,
-            last_pos: Optional[int] = None):
+            last_pos: Optional[int] = None,
+            front_pad: Optional[int] = None,
+            num_real: Optional[int] = None):
     """Run the full prompt, return (logits (B,1,V), cache slice).
 
     ``last_pos`` selects which position's logits to return instead of the
@@ -217,32 +255,60 @@ def prefill(params, batch: dict, cfg: ModelConfig, run: RunConfig,
     passes ``P - 1``; causal masking keeps positions < P from ever
     attending the pad tail, so those logits are the unpadded prompt's.
 
-    The cache slice is ``{"layers": [{"k","v"} (G, B, n, K, Dh)]}`` with
-    ``n = S`` lines (``min(cache_len, window)`` ring-placed lines under a
-    sliding window); see :func:`models.attention.attention_prefill`.
+    ``front_pad``/``num_real`` (both or neither) switch to FRONT-padded
+    bucketing for SSM and hybrid configs, whose state scan cannot ride
+    the causal mask past a tail pad: the real tokens sit at
+    ``[front_pad, front_pad + num_real)``, pads are masked out of the
+    attention kv and of the SSD recurrence (``dt = 0`` identity steps),
+    RoPE and causal positions shift to ``arange(S) - front_pad``, and the
+    K/V lines roll back so the real tokens land at lines ``[0,
+    num_real)``.  Callers align ``front_pad`` to a multiple of
+    ``cfg.ssm.chunk`` and pass ``last_pos = front_pad + num_real - 1``.
+    Needs rotary (not sinusoidal) positions and no sliding-window ring.
+
+    The cache slice holds per sublayer slot ``{"k","v"} (G, B, n, K, Dh)``
+    with ``n = S`` lines (``min(cache_len, window)`` ring-placed lines
+    under a sliding window; see :func:`models.attention.attention_prefill`)
+    or ``{"state" (G, B, H, P, N), "conv" (G, B, W-1, C)}``.
     """
-    _check_dense(cfg)
     P = group_period(cfg)
+    sched = layer_schedule(cfg)[:P]
     h = build_hidden(params, batch, cfg)
     S = h.shape[1]
     cache_len = cache_len or S
     slots = min(cache_len, cfg.sliding_window or cache_len)
-    per_layer = [{"k": [], "v": []} for _ in range(P)]
+    positions = valid = conv_end = None
+    if front_pad is not None:
+        assert num_real is not None
+        assert cfg.pos_embedding != "sinusoidal", \
+            "front-padded prefill: sinusoidal PE is applied in " \
+            "build_hidden, before the position shift"
+        idx = torch.arange(S, device=h.device)
+        valid = (idx >= front_pad) & (idx < front_pad + num_real)
+        positions = idx - front_pad
+        conv_end = front_pad + num_real
+    per_group = []
     for g in range(_groups(params)):
-        for i in range(P):
+        caches = []
+        for i, (mixer, ffn) in enumerate(sched):
             p = _take(params["layers"][i], g)
             hh = rmsnorm(h, p["norm1"]["scale"], cfg.norm_eps)
-            hh, c = A.attention_prefill(p["attn"], hh, cfg, slots,
-                                        use_kernels=run.use_kernels)
-            h = _ffn(p, h + hh, cfg)
-            per_layer[i]["k"].append(c["k"])
-            per_layer[i]["v"].append(c["v"])
+            if mixer == "attn":
+                hh, c = A.attention_prefill(p["attn"], hh, cfg, slots,
+                                            use_kernels=run.use_kernels,
+                                            positions=positions,
+                                            valid=valid, roll=front_pad)
+            else:
+                hh, c = SSM.ssm_prefill(p["ssm"], hh, cfg,
+                                        use_kernels=run.use_kernels,
+                                        valid=valid, conv_end=conv_end)
+            h = _ffn(p, h + hh, ffn, cfg)
+            caches.append(c)
+        per_group.append(caches)
     h = rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)
     h_last = h[:, -1:] if last_pos is None else h[:, last_pos:last_pos + 1]
     logits = unembed(params, h_last, cfg)
-    caches = [{"k": torch.stack(c["k"]), "v": torch.stack(c["v"])}
-              for c in per_layer]
-    return logits, {"layers": caches}
+    return logits, {"layers": _stack_caches(per_group)}
 
 
 def prefill_suffix(params, batch: dict, cache, page_table, start,
@@ -263,32 +329,33 @@ def prefill_suffix(params, batch: dict, cache, page_table, start,
 
     Returns (logits (B,1,V), {"layers": [{"k","v"} (G, B, S, K, Dh)]}):
     the suffix lines, for the caller to write into its own pages; shared
-    pages are never written.  Dense attention configs only.
+    pages are never written.  Full-attention configs only (paging already
+    gates SSM out).
     """
-    _check_dense(cfg)
     P = group_period(cfg)
+    sched = layer_schedule(cfg)[:P]
+    assert _attn_only(cfg), "prefix reuse is full-attention only"
     h = embed_tokens(params, batch["tokens"], cfg)
     S = h.shape[1]
     if cfg.pos_embedding == "sinusoidal":
         pe = A.sinusoidal_pe(start + torch.arange(S, device=h.device),
                              cfg.d_model)
         h = h + pe.to(h.dtype)[None]
-    per_layer = [{"k": [], "v": []} for _ in range(P)]
+    per_group = []
     for g in range(_groups(params)):
-        for i in range(P):
+        caches = []
+        for i, (_mixer, ffn) in enumerate(sched):
             p = _take(params["layers"][i], g)
             c = _take(cache["layers"][i], g)
             hh = rmsnorm(h, p["norm1"]["scale"], cfg.norm_eps)
             hh, kv = A.attention_prefill_paged(p["attn"], hh, c, page_table,
                                                start, cfg)
-            h = _ffn(p, h + hh, cfg)
-            per_layer[i]["k"].append(kv["k"])
-            per_layer[i]["v"].append(kv["v"])
+            h = _ffn(p, h + hh, ffn, cfg)
+            caches.append(kv)
+        per_group.append(caches)
     h = rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)
     h_last = h[:, -1:] if last_pos is None else h[:, last_pos:last_pos + 1]
-    caches = [{"k": torch.stack(c["k"]), "v": torch.stack(c["v"])}
-              for c in per_layer]
-    return unembed(params, h_last, cfg), {"layers": caches}
+    return unembed(params, h_last, cfg), {"layers": _stack_caches(per_group)}
 
 
 def prefill_chunk(params, batch: dict, cache, page_table, start,
@@ -313,9 +380,10 @@ def decode_step(params, cache, token, pos, cfg: ModelConfig, run: RunConfig,
     """One decoding step.  token: (B, 1) int; pos: scalar or (B,) int
     (0-based absolute position of each new token).  ``page_table``
     ((B, n_pages) int32) routes attention through the paged KV pool.
-    Writes the new KV lines into ``cache`` in place; returns
-    (logits (B,1,V), cache)."""
+    Writes the new KV lines and SSM states into ``cache`` in place;
+    returns (logits (B,1,V), cache)."""
     P = group_period(cfg)
+    sched = layer_schedule(cfg)[:P]
     B = token.shape[0]
     h = embed_tokens(params, token, cfg)
     if cfg.pos_embedding == "sinusoidal":
@@ -323,18 +391,20 @@ def decode_step(params, cache, token, pos, cfg: ModelConfig, run: RunConfig,
         pe = A.sinusoidal_pe(posv[:, None], cfg.d_model)   # (B,1,d)
         h = h + pe.to(h.dtype)
     for g in range(_groups(params)):
-        for i in range(P):
+        for i, (mixer, ffn) in enumerate(sched):
             p = _take(params["layers"][i], g)
             c = _take(cache["layers"][i], g)
             hh = rmsnorm(h, p["norm1"]["scale"], cfg.norm_eps)
-            if page_table is not None:
+            if mixer != "attn":
+                hh, _ = SSM.ssm_decode(p["ssm"], hh, c, cfg)
+            elif page_table is not None:
                 hh, _ = A.attention_decode_paged(
                     p["attn"], hh, c, pos, page_table, cfg,
                     use_kernels=run.use_kernels)
             else:
                 hh, _ = A.attention_decode(p["attn"], hh, c, pos, cfg,
                                            use_kernels=run.use_kernels)
-            h = _ffn(p, h + hh, cfg)
+            h = _ffn(p, h + hh, ffn, cfg)
     h = rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)
     return unembed(params, h, cfg), cache
 
@@ -354,9 +424,11 @@ def verify_tokens(params, cache, tokens, pos0, pages, offs, page_table,
     (``attention.attention_verify``, plain products whatever
     ``run.use_kernels`` says, as the JAX version reaches no Pallas
     kernel).  Writes the S lines into the pool in place; returns
-    (logits (B, S, V), cache).  Dense attention configs only."""
-    _check_dense(cfg)
+    (logits (B, S, V), cache).  Full-attention configs only (paging
+    already gates SSM out)."""
     P = group_period(cfg)
+    sched = layer_schedule(cfg)[:P]
+    assert _attn_only(cfg), "speculative verify is full-attention only"
     h = embed_tokens(params, tokens, cfg)
     if cfg.pos_embedding == "sinusoidal":
         S = tokens.shape[1]
@@ -364,13 +436,13 @@ def verify_tokens(params, cache, tokens, pos0, pages, offs, page_table,
                 + torch.arange(S, device=h.device)[None, :])
         h = h + A.sinusoidal_pe(posm, cfg.d_model).to(h.dtype)
     for g in range(_groups(params)):
-        for i in range(P):
+        for i, (_mixer, ffn) in enumerate(sched):
             p = _take(params["layers"][i], g)
             c = _take(cache["layers"][i], g)
             hh = rmsnorm(h, p["norm1"]["scale"], cfg.norm_eps)
             hh, _ = A.attention_verify(p["attn"], hh, c, pos0, pages, offs,
                                        page_table, cfg)
-            h = _ffn(p, h + hh, cfg)
+            h = _ffn(p, h + hh, ffn, cfg)
     h = rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)
     return unembed(params, h, cfg), cache
 

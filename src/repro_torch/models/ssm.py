@@ -1,13 +1,15 @@
-"""Mamba-2 SSD (state-space duality) block, training path — the port of
-the JAX package's ``models/ssm.py`` up to ``ssm_train``.  [arXiv:2405.21060]
+"""Mamba-2 SSD (state-space duality) block — chunked train/prefill scan and
+O(1)-state recurrent decode; the port of the JAX package's
+``models/ssm.py``.  [arXiv:2405.21060]
 
 The chunked algorithm (``ssd_chunked``) splits the sequence into chunks of
 length Q: within a chunk the dual "attention-like" quadratic form is used,
 across chunks a linear recurrence carries the (H, P, N) state.  This plain
-PyTorch implementation is the reference path; ``use_kernels`` routes the
-scan through ``kernels.ops.ssd_scan`` (the CUDA kernel on the card).  The
-serving half (``ssm_prefill``, ``ssm_decode``, ``init_ssm_cache``) comes
-with the SSM-serving slice.
+PyTorch implementation is the reference path; in training ``use_kernels``
+routes the scan through ``kernels.ops.ssd_scan`` (the CUDA kernel on the
+card).  Serving reaches no kernel, as in the JAX package: prefill runs the
+plain ``ssd_chunked`` (the cache needs its final state, which the kernel
+does not return) and decode is one recurrence step.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.models.init import torch_dtype
 
 f32 = torch.float32
 
@@ -117,3 +120,99 @@ def ssm_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
     y = y.reshape(B, S, H * P)
     y = _rmsnorm_gated(y, z, p["norm_scale"], cfg.norm_eps)
     return y @ p["wo"].to(y.dtype)
+
+
+def init_ssm_cache(cfg: ModelConfig, batch: int, n_groups: int,
+                   dtype=torch.float32, device=None):
+    """Stacked SSD decode state for one ssm sublayer slot: ``state`` (G, B,
+    H, P, N) in ``dtype`` (f32) and ``conv`` (G, B, W-1, C) in
+    ``cfg.dtype``, the last W-1 conv inputs."""
+    ssm = cfg.ssm
+    H = ssm.num_heads(cfg.d_model)
+    conv_ch = ssm.d_inner(cfg.d_model) + 2 * ssm.state
+    return {"state": torch.zeros((n_groups, batch, H, ssm.head_dim,
+                                  ssm.state), dtype=dtype, device=device),
+            "conv": torch.zeros((n_groups, batch, ssm.conv_width - 1,
+                                 conv_ch), dtype=torch_dtype(cfg.dtype),
+                                device=device)}
+
+
+def ssm_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                use_kernels: bool = False, valid=None, conv_end=None):
+    """Full-sequence forward that also returns the decode cache.
+
+    ``use_kernels`` is taken and ignored, as the JAX ``use_pallas`` is
+    here: the cache needs the scan's final state, so the plain
+    :func:`ssd_chunked` runs.
+
+    ``valid`` ((S,) bool, optional) marks pad positions of a front-padded
+    bucketed prompt.  ``dt = softplus(dt_raw + dt_bias)`` is nonzero even
+    for zero input, so pads are masked at the two recurrence inputs: the
+    conv input ``u`` (pads give the zeros the unpadded run's conv
+    init-state gives) and ``dt`` (``dt = 0`` makes a pad an identity step
+    of the scan).  The caller aligns the front pad to a chunk boundary, so
+    the real tokens' chunk offsets match the unpadded run.
+
+    ``conv_end`` (int, optional: ``front_pad + num_real``) ends the conv
+    window at the last real token instead of the padded tail.
+
+    Returns (out (B,S,d), {"state" (B,H,P,N) f32, "conv" (B,W-1,C)})."""
+    B, S, _ = x.shape
+    ssm = cfg.ssm
+    H, P = ssm.num_heads(cfg.d_model), ssm.head_dim
+    z, u, dt_raw = _proj_split(p, x, cfg)
+    if valid is not None:
+        u = u * valid[None, :, None].to(u.dtype)
+    u_conv, conv_state = _causal_conv(u, p["conv_w"], p["conv_b"])
+    u_conv = F.silu(u_conv)
+    xin, Bm, Cm = _post_conv_split(u_conv, cfg)
+    dt = F.softplus(dt_raw.to(f32) + p["dt_bias"].to(f32))
+    if valid is not None:
+        dt = dt * valid[None, :, None].to(dt.dtype)
+    A = -torch.exp(p["A_log"].to(f32))
+    xh = xin.reshape(B, S, H, P)
+    y, state = ssd_chunked(xh, dt, A, Bm, Cm, ssm.chunk)
+    y = y + xh * p["D"].to(y.dtype)[None, None, :, None]
+    y = y.reshape(B, S, H * P)
+    y = _rmsnorm_gated(y, z, p["norm_scale"], cfg.norm_eps)
+    out = y @ p["wo"].to(y.dtype)
+    if conv_end is not None:
+        # window of W-1 inputs ending at the last real token; when the
+        # prompt is shorter than the window it slides into the masked
+        # front pad, whose zeros match the unpadded run's zero init-state
+        W = p["conv_w"].shape[0]
+        up = torch.cat([torch.zeros((B, W - 1, u.shape[-1]), dtype=u.dtype,
+                                    device=u.device), u], dim=1)
+        conv_state = up[:, conv_end:conv_end + W - 1]
+    return out, {"state": state,
+                 "conv": conv_state.to(torch_dtype(cfg.dtype))}
+
+
+def ssm_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig):
+    """One-token recurrent decode.  x: (B,1,d); cache: this group's
+    ``state`` (B,H,P,N) and ``conv`` (B,W-1,C), updated **in place**
+    (``copy_``) as the attention decode writes its KV line.  Returns
+    (out (B,1,d), cache)."""
+    B = x.shape[0]
+    ssm = cfg.ssm
+    H, P = ssm.num_heads(cfg.d_model), ssm.head_dim
+    z, u, dt_raw = _proj_split(p, x, cfg)                 # (B,1,*)
+    # conv: window = [conv_state, u_t]
+    win = torch.cat([cache["conv"].to(u.dtype), u], dim=1)
+    y_conv = torch.einsum("bwc,wc->bc", win, p["conv_w"].to(u.dtype))
+    y_conv = F.silu(y_conv + p["conv_b"].to(u.dtype))    # (B,C)
+    xin, Bm, Cm = _post_conv_split(y_conv, cfg)           # (B,*)
+    dt = F.softplus(dt_raw[:, 0].to(f32) + p["dt_bias"].to(f32))   # (B,H)
+    A = -torch.exp(p["A_log"].to(f32))
+    a = torch.exp(dt * A)                                 # (B,H)
+    xh = xin.reshape(B, H, P).to(f32)
+    dBx = torch.einsum("bh,bhp,bn->bhpn", dt, xh, Bm.to(f32))
+    state = cache["state"] * a[:, :, None, None] + dBx    # (B,H,P,N)
+    y = torch.einsum("bhpn,bn->bhp", state, Cm.to(f32))
+    y = y + xh * p["D"].to(f32)[None, :, None]
+    y = y.reshape(B, 1, H * P).to(x.dtype)
+    y = _rmsnorm_gated(y, z, p["norm_scale"], cfg.norm_eps)
+    out = y @ p["wo"].to(y.dtype)
+    cache["state"].copy_(state)
+    cache["conv"].copy_(win[:, 1:])
+    return out, cache

@@ -322,11 +322,24 @@ class DecodeEngine:
     def _resolve_paging(self, kv_page_size: int,
                         kv_pages: Optional[int]) -> Optional[PagedKVConfig]:
         """Paged layout, or None (dense default).  Paging needs full
-        attention and no sliding-window ring.  ``kv_pages`` overrides the
-        pool size; the default matches the dense budget (num_slots *
-        cache_len lines) plus the null page."""
+        attention (no SSM state to page) and no sliding-window ring.
+        ``kv_pages`` overrides the pool size; the default matches the
+        dense budget (num_slots * cache_len lines) plus the null page."""
         if not kv_page_size:
             return None
+        # name the offending config field: "full-attention only" alone
+        # sends operators hunting through the whole ModelConfig
+        if self.cfg.ssm is not None:
+            raise ValueError(
+                "kv_page_size: paged KV cache needs a full-attention "
+                f"config, but cfg.ssm={self.cfg.ssm!r} — SSM recurrent "
+                "state is not line-addressable, so it cannot be paged")
+        if self.cfg.attn_every != 1:
+            raise ValueError(
+                "kv_page_size: paged KV cache needs a full-attention "
+                f"config, but cfg.attn_every={self.cfg.attn_every} "
+                "interleaves non-attention sublayers whose state has no "
+                "page layout")
         if self.cfg.sliding_window is not None:
             raise ValueError(
                 "kv_page_size: paged KV cache does not support "
@@ -360,13 +373,26 @@ class DecodeEngine:
 
     def _resolve_buckets(self, spec):
         """Power-of-two prompt-length buckets, or None (exact-length
-        prefill).  Full-attention configs pad the prompt tail; refused
-        (exact prefill) for sliding-window ring caches, whose wrapped
-        slot layout has no pad region."""
+        prefill).  Full-attention configs pad the prompt TAIL (causal
+        masking keeps pads out of real state).  SSM and hybrid configs
+        pad the FRONT instead (``models.model.prefill``'s front-pad
+        mode): the pad lands at a chunk-aligned offset whose masked
+        positions are the SSD scan's identity.  Refused (exact prefill)
+        for sliding-window ring caches (the wrapped slot layout has no pad
+        region), and for SSM and hybrid configs under sinusoidal
+        embeddings (added before the front shift is known) or
+        ``run.use_kernels`` (the flash kernel takes no validity mask) —
+        the JAX engine's rule for ``run.use_pallas``."""
+        self._front_pad = False
         if not spec:
             return None
         if self.cfg.sliding_window is not None:
             return None
+        if not (self.cfg.attn_every == 1 and self.cfg.ssm is None):
+            if self.cfg.pos_embedding == "sinusoidal" or \
+                    self.run.use_kernels:
+                return None
+            self._front_pad = True
         if spec == "auto":
             out, b = [], 32
             while b < self.cache_len:
@@ -635,14 +661,22 @@ class DecodeEngine:
                     P = len(toks)
                     L = P if self._buckets is None else next(
                         b for b in self._buckets if b >= P)
+                    f, front = 0, {}
+                    if self._front_pad:
+                        # SSM/hybrid: pad the FRONT, at a chunk-aligned
+                        # offset so the real tokens' SSD chunk boundaries
+                        # match the unpadded run's
+                        Q = self.cfg.ssm.chunk if self.cfg.ssm else 1
+                        f = ((L - P) // Q) * Q
+                        front = dict(front_pad=f, num_real=P)
                     padded = np.zeros(L, np.int32)
-                    padded[:P] = toks
+                    padded[f:f + P] = toks
                     logits, cache1 = prefill(
                         self.params, {"tokens": self._put(padded)[None]},
                         self.cfg, self.run,
                         cache_len=None if self.paging is not None
                         else self.cache_len,
-                        last_pos=P - 1)
+                        last_pos=f + P - 1, **front)
                     self.prefill_lengths.add(L)
             # sync inside the timed region: the launches are asynchronous
             self._sync()
@@ -727,13 +761,15 @@ class DecodeEngine:
         return logits, cache1, L
 
     def _insert_dense(self, cache1, slot: int):
-        """Write a prefilled slice (G, 1, n, K, Dh) per layer into the
-        slot's row, in place.  Lines past n keep stale contents, masked
-        at decode until overwritten."""
+        """Write a prefilled slice into the slot's row, in place: an
+        attention sublayer's lines (G, 1, n, K, Dh) into lines ``[0,
+        n)`` (lines past n keep stale contents, masked at decode until
+        overwritten), an SSM sublayer's ``state`` and ``conv`` rows
+        whole."""
         for dst, src in zip(self.cache["layers"], cache1["layers"]):
-            for name in ("k", "v"):
-                n = src[name].shape[2]
-                dst[name][:, slot, :n].copy_(src[name][:, 0])
+            for name, leaf in src.items():
+                n = leaf.shape[2]
+                dst[name][:, slot, :n].copy_(leaf[:, 0])
 
     def _insert_pages(self, cache1, pages: list):
         """Write a prefilled slice's lines into ``pages`` (whole pages from

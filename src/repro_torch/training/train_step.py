@@ -32,7 +32,10 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, opt: OptimizerConfig):
     def grads_of(params, batch):
         xs = [p.detach().requires_grad_(True) for p in leaves(params)]
         loss, metrics = loss_fn(unflatten(params, xs), batch, cfg, run)
-        grads = torch.autograd.grad(loss, xs)
+        # a leaf the forward does not read (the token table of an audio
+        # stub's batch of frame embeddings) gets zeros, as jax.grad gives
+        grads = torch.autograd.grad(loss, xs, allow_unused=True,
+                                    materialize_grads=True)
         return grads, {k: v.detach() for k, v in metrics.items()}
 
     def step(params, opt_state, batch):

@@ -4,6 +4,13 @@ train step -> metrics -> periodic checkpoints, with resume-from-LATEST
 The port of the JAX package's ``training/trainer.py`` for one device: no
 mesh; the step runs on ``device`` (CUDA unless the caller asks for
 another).
+
+Token configs (dense, SSM, hybrid, MoE) train on the packed synthetic
+stream, as in the JAX trainer.  The vision and audio stubs train on
+``models.make_batch`` batches, whose stub embeddings the token stream
+lacks: step i (1-based) draws ``make_batch(seed=tcfg.seed + i)``, so a
+resumed job sees the batches an uninterrupted one would.  The JAX
+trainer feeds them the token stream.
 """
 from __future__ import annotations
 
@@ -18,7 +25,7 @@ from repro_torch import checkpoint as ckpt
 from repro_torch.configs.base import InputShape, ModelConfig, RunConfig
 from repro_torch.data import DataConfig, PackedStream
 from repro_torch.device import resolve_device
-from repro_torch.models import init_params
+from repro_torch.models import init_params, make_batch
 from repro_torch.monitoring import MetricsRegistry
 from repro_torch.optim import OptimizerConfig, init_opt_state
 from repro_torch.training.train_step import make_train_step
@@ -79,6 +86,14 @@ class Trainer:
                   data_state={"doc": np.int64(ds["doc"]), "buf": ds["buf"]})
 
     # ------------------------------------------------------------- loop ----
+    def _next_batch(self) -> dict:
+        if self.cfg.frontend != "none":
+            return make_batch(self.cfg, self.shape,
+                              seed=self.tcfg.seed + self.step + 1,
+                              device=self.device)
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in self.data.next_batch().items()}
+
     def train(self, log=print):
         """Run to ``tcfg.steps``.  Parameters set on the trainer before the
         call are used as they are (no init, no resume); a missing
@@ -90,8 +105,7 @@ class Trainer:
             self.opt_state = init_opt_state(self.params, self.opt)
         tokens_per_step = self.shape.global_batch * self.shape.seq_len
         while self.step < self.tcfg.steps:
-            batch = {k: torch.from_numpy(v).to(self.device)
-                     for k, v in self.data.next_batch().items()}
+            batch = self._next_batch()
             t0 = time.perf_counter()
             self.params, self.opt_state, m = self.step_fn(
                 self.params, self.opt_state, batch)

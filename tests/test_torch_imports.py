@@ -1,13 +1,19 @@
 """The port stands alone: every module of ``repro_torch`` and
 ``chip_smoke.py`` imports in a fresh interpreter whose import hook refuses
 ``jax`` and ``repro`` (the exact top-level names), and ``triton``; no
-kernel module builds or looks for ``nvcc`` at import."""
+kernel module builds or looks for ``nvcc`` at import.  The serve and
+train CLIs run every model family on the CPU at reduced size."""
+import contextlib
+import io
 import json
 import os
 import pkgutil
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -61,7 +67,12 @@ def test_port_imports_without_jax_repro_or_triton(tmp_path):
                 "data.pipeline", "optim.adamw", "training.train_step",
                 "training.trainer", "checkpoint.store", "launch.train",
                 "configs.mamba2_780m", "monitoring.trace", "serving.prefix",
-                "serving.spec", "cluster.meshbridge", "cluster.cli"):
+                "serving.spec", "cluster.meshbridge", "cluster.cli",
+                "models.moe", "configs.minitron_4b",
+                "configs.starcoder2_3b", "configs.repro_100m",
+                "configs.qwen2_moe_a2_7b", "configs.dbrx_132b",
+                "configs.jamba_1_5_large_398b", "configs.pixtral_12b",
+                "configs.musicgen_large"):
         assert f"repro_torch.{mod}" in out["modules"]
     assert not (tmp_path / "build").exists()
 
@@ -82,3 +93,40 @@ def test_no_source_names_jax_or_repro():
                         top == "triton" and not line.startswith(" ")):
                     bad.append(f"{f.relative_to(ROOT)}:{n}: {s}")
     assert bad == [], json.dumps(bad, indent=1)
+
+
+@pytest.fixture
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "jamba-1.5-large-398b",
+                                  "qwen2-moe-a2.7b"])
+def test_serve_cli_runs_each_family(arch, one_thread):
+    from repro_torch.launch import serve
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                         "--requests", "3", "--max-new", "4",
+                         "--cache-len", "64"])
+    assert rc == 0
+    # 3 of each request's 4 tokens come from decode calls
+    assert "served 3 requests, 9 tokens" in out.getvalue()
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "pixtral-12b",
+                                  "musicgen-large"])
+def test_train_cli_runs_moe_and_frontend(arch, one_thread):
+    from repro_torch.launch import train
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = train.main(["--arch", arch, "--reduced", "--device", "cpu",
+                         "--steps", "2", "--seq-len", "32", "--batch", "2"])
+    text = out.getvalue()
+    assert rc == 0
+    assert "float32 AdamW state" in text and "step     2  loss" in text
+    loss = float(text.split("step     2  loss ")[1].split()[0])
+    assert 0 < loss < 10

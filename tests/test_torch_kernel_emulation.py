@@ -53,6 +53,17 @@ DECODE_CASES = {
                         [95, 40, 7, 0], 4),
     "draft-dh32-f32": (4, 96, 2, 2, 32, None, "float32", "float32",
                        [95, 40, 7, 0], 4),
+    # the head layouts of qwen2-moe-a2.7b (MHA at Dh 128: one query head
+    # a kv head) and starcoder2-3b (12 query heads a kv head of 128), with
+    # fewer kv heads than the models (each kv head is its own block)
+    "qwen2moe-mha-dh128-bf16": (2, 64, 4, 4, 128, None, "bfloat16",
+                                "bfloat16", [63, 20], 4),
+    "qwen2moe-mha-dh128-f32": (2, 64, 4, 4, 128, None, "float32",
+                               "bfloat16", [63, 20], 4),
+    "starcoder2-gqa12-bf16": (2, 64, 12, 1, 128, None, "bfloat16",
+                              "bfloat16", [63, 31], 4),
+    "starcoder2-gqa12-f32": (2, 64, 12, 1, 128, None, "float32",
+                             "float32", [63, 31], 4),
 }
 
 # (B, n_pages in a table row, page size, H, K, Dh, q dtype, kv dtype,
@@ -79,6 +90,15 @@ PAGED_CASES = {
     # pages
     "ps12-straddles-splits": (2, 11, 12, 4, 2, 64, "bfloat16", "bfloat16",
                               [130, 50], 8),
+    # qwen2-moe-a2.7b's MHA and starcoder2-3b's 12-way groups, Dh 128
+    "qwen2moe-mha-dh128-bf16": (2, 4, 16, 4, 4, 128, "bfloat16",
+                                "bfloat16", [63, 30], 4),
+    "qwen2moe-mha-dh128-f32": (2, 4, 16, 4, 4, 128, "float32",
+                               "float32", [63, 30], 4),
+    "starcoder2-gqa12-bf16": (2, 4, 16, 12, 1, 128, "bfloat16", "bfloat16",
+                              [63, 30], 4),
+    "starcoder2-gqa12-f32": (2, 4, 16, 12, 1, 128, "float32", "bfloat16",
+                             [63, 30], 4),
 }
 
 # (B, S, H, P, N, chunk target, dtype, A and dt or None): x, Bm and Cm
@@ -120,6 +140,12 @@ ATTN_CASES = {
     # the draft model's prefill: H = K = 2, Dh 32, a bucket of 32
     "draft-dh32-bf16": (1, 32, 2, 2, 32, None),
     "draft-dh32-f32": (1, 32, 2, 2, 32, None, "float32"),
+    # qwen2-moe-a2.7b's prefill layout (MHA at Dh 128) and starcoder2-3b's
+    # (12 query heads a kv head of 128)
+    "qwen2moe-mha-dh128-bf16": (1, 40, 2, 2, 128, None),
+    "qwen2moe-mha-dh128-f32": (1, 40, 2, 2, 128, None, "float32"),
+    "starcoder2-gqa12-bf16": (1, 40, 12, 1, 128, None),
+    "starcoder2-gqa12-f32": (1, 40, 12, 1, 128, None, "float32"),
 }
 
 
