@@ -80,7 +80,25 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
    heads, one wave, dense cache).  Every run logs tok/s, prefill and
    decode-call means, launches and peak memory; each model then goes
    through the consistency check of phase 6.
-11. summary — the kernels line, then the device line last.
+11. elastic — full-width stablelm-3b replicas on the one card, built by
+   the serve CLI's ``--replicas``/``--autoscale`` code over one bf16
+   weight set (built again from the seed: phase 4's were freed), 4
+   slots, cache_len 512 and decode chunk 8 each, 8 requests in two waves
+   behind two 64-token system prompts in turn: 1 replica (16-line pages,
+   prefix cache), then 2 replicas round robin on the dense cache, 2 under
+   prefix affinity and 2 round robin with pages and the prefix cache, and
+   the autoscaler over a simulated 2-node cluster, where a high-QOS job
+   preempts one replica's job after the first wave's 3 router steps and
+   the next tick drains it.  Each run logs wall tok/s, tokens over the
+   busiest replica's busy seconds, the router's counters, prefix hits,
+   peak memory and launches; fail on a short request, a kernel of a
+   run's path that never launched, fewer than 7 of 8 affinity hits,
+   fewer prefix hits under affinity than under round robin, a drain that
+   moved no request mid-decode or lost a partial output, or two
+   replicas' peak more than one KV pool + 1 GiB above one replica's.
+   Then two replicas (one drained after the first step) against one
+   engine, greedy, in f32 at 4 layers, as phase 6 does.
+12. summary — the kernels line, then the device line last.
 
 Exits non-zero on any failure, and when no card is present.
 """
@@ -1542,6 +1560,285 @@ def empty_cache(device):
         torch.cuda.empty_cache()
 
 
+# -------------------------------------------------------------- elastic ----
+
+#: the elastic phase's bf16 runs: a label and the serve CLI's flags (every
+#: run also gets the phase's slots, cache, decode chunk, new tokens, two
+#: waves and the seed).  Run 1 pages as runs 3-5 do, so that their peak
+#: memory differs by the KV pools alone; run 5 round-robins, so that the
+#: drained replica holds requests whatever the hash ring says
+ELASTIC_RUNS = (
+    ("1 replica, paged, prefix cache",
+     ["--replicas", "1", "--kv-paging", "16", "--prefix-cache"]),
+    ("2 replicas, rr, dense", ["--replicas", "2"]),
+    ("2 replicas, affinity, paged, prefix cache",
+     ["--replicas", "2", "--affinity", "--kv-paging", "16",
+      "--prefix-cache"]),
+    ("2 replicas, rr, paged, prefix cache",
+     ["--replicas", "2", "--kv-paging", "16", "--prefix-cache"]),
+    ("autoscale 1-2 replicas, rr, paged, prefix cache",
+     ["--replicas", "2", "--autoscale", "--kv-paging", "16",
+      "--prefix-cache"]),
+)
+
+
+def elastic_requests(cfg, args, greedy=False) -> list:
+    """The elastic phase's requests: ``args["requests"]`` prompts, each one
+    of two 64-token system prompts in turn plus a tail of 4-63 tokens, from
+    the seed; greedy and temperature 0.8 in turn (all greedy with
+    ``greedy``)."""
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(SEED + 8)
+    systems = [rng.integers(2, cfg.vocab_size, 64).astype(np.int32)
+               for _ in range(2)]
+    requests = []
+    for rid in range(args["requests"]):
+        tail = rng.integers(2, cfg.vocab_size,
+                            int(rng.integers(4, 64))).astype(np.int32)
+        requests.append(Request(
+            rid=rid, prompt=np.concatenate([systems[rid % 2], tail]),
+            max_new_tokens=args["max_new"],
+            temperature=0.0 if greedy else float(rid % 2) * 0.8))
+    return requests
+
+
+def elastic_cli(args, flags, device):
+    """The serve CLI's parsed arguments for one elastic run."""
+    from repro_torch.launch import serve
+
+    return serve.build_parser().parse_args(
+        ["--slots", str(args["slots"]), "--cache-len", str(args["cache_len"]),
+         "--decode-chunk", str(args["decode_chunk"]), "--max-new",
+         str(args["max_new"]), "--bursts", "2", "--seed", str(SEED),
+         "--device", str(device), *flags])
+
+
+def kv_gib(engine) -> float:
+    """The engine's KV cache (its pool when paged), GiB."""
+    return sum(t.numel() * t.element_size()
+               for layer in engine.cache["layers"]
+               for t in layer.values()) / 2**30
+
+
+def elastic_run(cfg, params, args, label, flags, device="cuda") -> dict:
+    """One elastic run through the serve CLI's own functions
+    (``elastic_factory``, ``start_elastic``, ``run_waves``): the replicas
+    share ``params``; the peak memory is reset before the router is built
+    and the launch counts just before the waves, both read after them.
+    Logged, and held to :func:`check_run`'s gates."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.monitoring import MetricsRegistry
+    from repro_torch.monitoring.metrics import (
+        METRIC_SERVE_PREFIX_HITS, METRIC_SERVE_PREFIX_REUSED_TOKENS,
+    )
+
+    cli = elastic_cli(args, flags, device)
+    paging = serve.resolve_paging(cli)
+    requests = elastic_requests(cfg, args)
+    metrics = MetricsRegistry()
+    gc.collect()              # the last run's engines sit in ref cycles
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    router, scaler, cluster = serve.start_elastic(
+        cli, serve.elastic_factory(cli, cfg, params, metrics, paging,
+                                   torch.device(device)),
+        metrics, {"default": 1})
+    pool = kv_gib(next(iter(router.replicas.values())).engine)
+    # what each drained replica held: (request, its output at the drain)
+    moved = []
+    remove = router.remove_replica
+
+    def remove_replica(rid):
+        eng = router.replicas[rid].engine
+        moved.extend((q, list(q.output)) for q in eng.slots if q is not None)
+        return remove(rid)
+
+    router.remove_replica = remove_replica
+    sync(device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    serve.run_waves(cli, router, requests, scaler, cluster)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    total = int(metrics.counter("serve_tokens_generated").value())
+    busy = max(router.busy_seconds().values())
+    r = {"label": label, "requests": requests, "launches": launches,
+         "wall_s": wall, "tokens": total, "tok_s": total / wall,
+         "busy_tok_s": total / busy, "stats": dict(router.stats),
+         "hits": int(metrics.counter(METRIC_SERVE_PREFIX_HITS).value()),
+         "reused": int(metrics.counter(
+             METRIC_SERVE_PREFIX_REUSED_TOKENS).value()),
+         "peak_gib": peak_gib(device), "pool_gib": pool, "moved": moved,
+         "replicas": len(router.replicas),
+         "scaler": dict(scaler.stats) if scaler is not None else None}
+    st = r["stats"]
+    log(f"  {label}: {len(requests)} requests, {total} decode tokens in "
+        f"{wall:.3f} s = {r['tok_s']:.1f} tok/s wall, "
+        f"{r['busy_tok_s']:.1f} tok/s over the busiest replica's "
+        f"{busy:.3f} busy s; router routed {st['routed']}, affinity hits "
+        f"{st['affinity_hits']}, spills {st['spills']}, drains "
+        f"{st['drains']}, resubmitted {st['resubmitted']}; prefix hits "
+        f"{r['hits']}, reused tokens {r['reused']}; KV {pool:.3f} GiB a "
+        f"replica; peak {r['peak_gib']:.2f} GiB (max_memory_allocated); "
+        f"launches {launches}")
+    check_run(cfg, label, r, args, device, must=(
+        "flash_attention", "flash_decode_paged" if paging
+        else "flash_decode"))
+    return r
+
+
+def elastic_identity(cfg, args, device="cuda", layers=4) -> dict:
+    """Greedy tokens of two replicas against one engine, in f32 with the
+    depth cut to ``layers`` and f32 KV lines (:func:`f32_lines`): the
+    reference is a classic paged engine; the run under test two replicas
+    under round robin (16-line pages, prefix cache) with one of them
+    drained after the first router step.  A difference passes only as a
+    tie: the reference's top-2 logit gap at the first differing token
+    below 1e-4."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+    from repro_torch.models.model import cast_for_compute
+    from repro_torch.monitoring import MetricsRegistry
+    from repro_torch.serving import DecodeEngine
+
+    c = dataclasses.replace(cfg, num_layers=layers, dtype="float32")
+    params = cast_for_compute(init_params(c, SEED, device), torch.float32)
+    ops.reset_launch_counts()
+    ref = elastic_requests(c, args, greedy=True)
+    eng = DecodeEngine(c, params, num_slots=args["slots"],
+                       cache_len=args["cache_len"], seed=SEED,
+                       decode_chunk=args["decode_chunk"],
+                       prefill_buckets="auto", kv_page_size=16,
+                       device=device)
+    f32_lines(eng)
+    for q in ref:
+        eng.submit(q)
+    eng.run_to_completion()
+    del eng
+
+    cli = elastic_cli(args, ["--replicas", "2", "--kv-paging", "16",
+                             "--prefix-cache"], device)
+    metrics = MetricsRegistry()
+    make = serve.elastic_factory(cli, c, params, metrics, 16,
+                                 torch.device(device))
+
+    def make_f32(admission):
+        engine = make(admission)
+        f32_lines(engine)
+        return engine
+
+    router, _, _ = serve.start_elastic(cli, make_f32, metrics,
+                                       {"default": 1})
+    got = elastic_requests(c, args, greedy=True)
+    for q in got:
+        router.submit(q)
+    router.step()
+    moved = router.remove_replica(max(router.replicas))
+    router.run_to_completion()
+    same = ties = 0
+    for q, a in zip(ref, got):
+        if not a.done or len(a.output) != q.max_new_tokens:
+            raise AssertionError(f"elastic identity: request {a.rid} "
+                                 f"came back with {len(a.output)} tokens")
+        if q.output == a.output:
+            same += 1
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(q.output, a.output))
+                 if x != y)
+        gap = top2_gap(c, params, q.prompt, q.output[:j], device)
+        log(f"  request {q.rid} differs at token {j} ({q.output[j]} one "
+            f"engine, {a.output[j]} two replicas); top-2 gap {gap:.3e}")
+        if gap >= 1e-4:
+            raise AssertionError(f"elastic identity: request {q.rid} "
+                                 f"differs at token {j} with a top-2 gap "
+                                 f"of {gap}")
+        ties += 1
+    launches = ops.launch_counts()
+    preempted = sum(q.preemptions > 0 for q in got)
+    if moved == 0 or preempted == 0:
+        raise AssertionError(f"elastic identity: the drain moved {moved} "
+                             f"requests, {preempted} preempted")
+    log(f"  f32, {layers} layers: {same}/{len(ref)} requests token for "
+        f"token equal to one classic paged engine, through two replicas "
+        f"with one drained after the first step ({moved} requests moved, "
+        f"{preempted} resumed from partial output); ties (top-2 gap < "
+        f"1e-4 at the first difference) {ties}; launches {launches} (a "
+        "check in f32 at 4 layers, not the main path: not in the kernels "
+        "line)")
+    return {"same": same, "ties": ties, "moved": moved,
+            "launches": launches}
+
+def elastic_phase(args, device="cuda", reduced=False) -> dict:
+    """Elastic serving of stablelm-3b at full width (``reduced``: the
+    reduced config, for a rehearsal on the CPU): the weights built from
+    the seed and cast to bf16 once, then the runs of ``ELASTIC_RUNS``
+    through the serve CLI's router and autoscaler, every replica on the
+    one card with the same weights; then :func:`elastic_identity`.
+    Gates: every request finishes; the affinity run routes at least 7 of
+    8 requests to their affine replica and has at least the round-robin
+    run's prefix hits; the autoscale run drains one replica mid-decode
+    and resumes its requests from their partial output; on the card the
+    kernels of each run's path launched, and two replicas' peak memory
+    exceeds one replica's by at most one KV pool + 1 GiB (a second weight
+    set would add 5.2 GiB).  Returns the bf16 runs, whose launches are
+    main-path launches, and the identity check."""
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.models import init_params
+    from repro_torch.models.model import cast_for_compute, compute_dtype
+
+    cfg = (get_reduced_config if reduced else get_config)("stablelm-3b")
+    gc.collect()
+    empty_cache(device)
+    params = cast_for_compute(init_params(cfg, SEED, device),
+                              compute_dtype(cfg))
+    sync(device)
+    if torch.device(device).type == "cuda":
+        log(f"  params {torch.cuda.memory_allocated() / 2**30:.2f} GiB on "
+            "the card, one set for every replica")
+    runs = [elastic_run(cfg, params, args, label, flags, device)
+            for label, flags in ELASTIC_RUNS]
+    one, _, aff, rr, auto = runs
+    n = args["requests"]
+    if aff["stats"]["affinity_hits"] < n - 1:
+        raise AssertionError(f"elastic: {aff['stats']['affinity_hits']} "
+                             f"affinity hits of {n}")
+    if aff["hits"] < rr["hits"]:
+        raise AssertionError(f"elastic: affinity routing gave "
+                             f"{aff['hits']} prefix hits, round robin "
+                             f"{rr['hits']}")
+    resumed = [(q, out) for q, out in auto["moved"] if out]
+    if (auto["stats"]["drains"] != 1 or auto["scaler"]["drains"] != 1
+            or not resumed):
+        raise AssertionError(f"elastic autoscale: router {auto['stats']}, "
+                             f"autoscaler {auto['scaler']}, "
+                             f"{len(resumed)} requests moved mid-decode")
+    for q, out in resumed:
+        if q.output[:len(out)] != out or q.preemptions < 1:
+            raise AssertionError(f"elastic autoscale: request {q.rid} lost "
+                                 "its partial output in the drain")
+    log(f"  autoscale: {len(resumed)} requests drained mid-decode "
+        f"({', '.join(f'{q.rid}: {len(out)} tokens' for q, out in resumed)})"
+        f", each resumed from its partial output on the survivor")
+    if torch.device(device).type == "cuda":
+        grew = aff["peak_gib"] - one["peak_gib"]
+        log(f"  peak memory: 2 replicas {aff['peak_gib']:.2f} GiB, 1 "
+            f"replica {one['peak_gib']:.2f} GiB: +{grew:.2f} GiB for one "
+            f"more KV pool of {one['pool_gib']:.3f} GiB")
+        if grew > one["pool_gib"] + 1:
+            raise AssertionError(f"elastic: a second replica added "
+                                 f"{grew:.2f} GiB, more than its KV pool "
+                                 f"+ 1 GiB: the weights are not shared")
+    del params
+    empty_cache(device)
+    ident = elastic_identity(cfg, args, device)
+    empty_cache(device)
+    return {"runs": runs, "identity": ident}
+
+
 # -------------------------------------------------------------- cluster ----
 
 def cluster_phase(tcfg, targs, scfg, sargs, reference, devices=None) -> dict:
@@ -1778,12 +2075,12 @@ def main(argv=None) -> int:
         """Seconds since the start, for the phase headers."""
         return f"at {time.perf_counter() - t_start:.1f} s"
 
-    log(f"[1/11] device: {smi} | torch {torch.__version__} cuda "
+    log(f"[1/12] device: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     build.build_all(verbose=True)
-    log(f"[2/11] build: kernels built in {time.perf_counter() - t0:.1f} s "
+    log(f"[2/12] build: kernels built in {time.perf_counter() - t0:.1f} s "
         f"({build.BUILD_ROOT / build.source_hash()})")
 
     cfg = get_config("stablelm-3b")
@@ -1791,7 +2088,7 @@ def main(argv=None) -> int:
     targs = dict(batch=4, microbatches=2, seq_len=2048, steps=4)
     shape = dict(H=cfg.num_heads, K=cfg.num_kv_heads, Dh=cfg.head_dim,
                  slots=4, cache_len=512, prefill_len=128)
-    log(f"[3/11] {at()}: kernels vs plain versions (tolerance bf16 "
+    log(f"[3/12] {at()}: kernels vs plain versions (tolerance bf16 "
         f"{TOL[torch.bfloat16]}, f32 {TOL[torch.float32]}; times: median "
         "of 20 launches, L2 flushed, queued behind a sleep: device time "
         "only):")
@@ -1804,7 +2101,7 @@ def main(argv=None) -> int:
         return 0
     grad_phase()
 
-    log(f"[4/11] {at()}: serve: full-width {cfg.name} ({cfg.num_layers} "
+    log(f"[4/12] {at()}: serve: full-width {cfg.name} ({cfg.num_layers} "
         f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads x "
         f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), random "
         f"weights seed {SEED}, bf16 compute")
@@ -1826,14 +2123,14 @@ def main(argv=None) -> int:
     profiles = {kind: profile_phase(cfg, params, args, kind == "paged")
                 for kind in ("dense", "paged")}
 
-    log(f"[5/11] {at()}: serve modes: full-width {cfg.name}, bf16, "
+    log(f"[5/12] {at()}: serve modes: full-width {cfg.name}, bf16, "
         f"{args['slots']} slots, cache {args['cache_len']}, 16-line pages, "
         f"decode chunk {args['decode_chunk']}, {args['requests']} requests "
         f"of {args['max_new']} tokens a run")
     modes = serve_modes_phase(cfg, params, args)
     plain_paths_phase(cfg, params, args)
 
-    log(f"[6/11] {at()}: consistency at full width (kernels vs plain "
+    log(f"[6/12] {at()}: consistency at full width (kernels vs plain "
         "versions):")
     consistency_phase(cfg, params)
     del params
@@ -1844,7 +2141,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     ssm = tcfg.ssm
-    log(f"[7/11] {at()}: train: full-width {tcfg.name} ({tcfg.num_layers} "
+    log(f"[7/12] {at()}: train: full-width {tcfg.name} ({tcfg.num_layers} "
         f"layers, d_model {tcfg.d_model}, {ssm.num_heads(tcfg.d_model)} SSD "
         f"heads x {ssm.head_dim}, state {ssm.state}, chunk {ssm.chunk}, vocab "
         f"{tcfg.vocab_size}), f32 weights seed {SEED}, bf16 compute, f32 "
@@ -1853,27 +2150,36 @@ def main(argv=None) -> int:
     train = train_phase(tcfg, targs, kernels["ssd_scan"]["ms"])
     torch.cuda.empty_cache()
 
-    log(f"[8/11] {at()}: train consistency at full width (kernels vs plain "
+    log(f"[8/12] {at()}: train consistency at full width (kernels vs plain "
         "vs f32):")
     train_consistency_phase(tcfg, targs)
     torch.cuda.empty_cache()
 
-    log(f"[9/11] {at()}: cluster: a scavenger job trains {tcfg.name} as "
+    log(f"[9/12] {at()}: cluster: a scavenger job trains {tcfg.name} as "
         f"phase 7 does, a high-QOS job serving {cfg.name} preempts it, it "
         "requeues and resumes from its checkpoint")
     clus = cluster_phase(tcfg, targs, cfg, args, train["losses"])
     torch.cuda.empty_cache()
 
-    log(f"[10/11] {at()}: families: SSM serving of mamba2-780m, MoE "
+    log(f"[10/12] {at()}: families: SSM serving of mamba2-780m, MoE "
         f"serving of qwen2-moe-a2.7b, starcoder2-3b; full width, "
         f"{args['slots']} slots, cache {args['cache_len']}, one wave of 4 "
         f"requests of {args['max_new']} tokens a run (two for n-gram "
         f"speculation), decode chunk {args['decode_chunk']}")
     fam = families_phase(dict(args, requests=4))
 
+    log(f"[11/12] {at()}: elastic: full-width {cfg.name} replicas sharing "
+        f"one card and one bf16 weight set behind the router; "
+        f"{args['slots']} slots, cache {args['cache_len']}, decode chunk "
+        f"{args['decode_chunk']} a replica; {args['requests']} requests "
+        f"of {args['max_new']} tokens in two waves, behind two 64-token "
+        "system prompts in turn")
+    elastic = elastic_phase(args)
+
     # the main path's serve runs: the f32 4-layer identity runs are a
     # check, not the path, and log their launches on their own line
-    serve_runs = [dense, paged, *modes.values(), *fam["runs"]]
+    serve_runs = [dense, paged, *modes.values(), *fam["runs"],
+                  *elastic["runs"]]
     launches = {name: sum(r["launches"][name] for r in serve_runs)
                 for name in ("flash_attention", "flash_decode",
                              "flash_decode_paged")}
@@ -1887,7 +2193,9 @@ def main(argv=None) -> int:
                            for label, r in modes.items())
     fam_rates = ", ".join(f"{r['label']} {r['tok_s']:.1f}"
                           for r in fam["runs"])
-    log(f"[11/11] summary ({time.perf_counter() - t_start:.1f} s; serve "
+    elastic_rates = ", ".join(f"{r['label']} {r['tok_s']:.1f}"
+                              for r in elastic["runs"])
+    log(f"[12/12] summary ({time.perf_counter() - t_start:.1f} s; serve "
         f"dense {dense['tok_s']:.1f} tok/s, paged {paged['tok_s']:.1f} "
         f"tok/s; modes {mode_rates} tok/s; decode kernel per token step "
         f"dense "
@@ -1896,9 +2204,10 @@ def main(argv=None) -> int:
         f"{train['tok_s']:,.0f} tok/s, {train['step_s']:.3f} s/step, peak "
         f"{train['peak_gib']:.2f} GiB; cluster phase {clus['wall_s']:.1f} "
         f"s, losses bit-identical to phase 7's; families {fam_rates} "
-        "tok/s; launches summed over the main path: the bf16 serve runs "
-        "(dense, paged, the four modes, the families' five runs), the kept "
-        "train steps and the cluster phase's two jobs)")
+        f"tok/s; elastic {elastic_rates} tok/s wall; launches summed over "
+        "the main path: the bf16 serve runs (dense, paged, the four "
+        "modes, the families' five runs, the elastic phase's five), the "
+        "kept train steps and the cluster phase's two jobs)")
     log("kernels " + json.dumps(summary))
     log(smi)
     line = {"kernels": [dict(name=name, route=r["route"], source=r["source"],

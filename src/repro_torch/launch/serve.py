@@ -12,6 +12,14 @@ The engine's serving modes have the JAX CLI's flags: ``--prefix-cache``
 prompt), ``--max-batch-tokens [T]``, ``--speculate [K]`` with
 ``--spec-source`` and ``--draft-model``, ``--no-fused`` and ``--trace
 OUT_JSON``.  The first three imply ``--kv-paging 16``.
+
+Elastic serving, as in the JAX CLI: ``--replicas N`` puts N engines behind
+the prefix-affinity router (``--affinity``, ``--spill-factor F``; round
+robin otherwise), and ``--autoscale`` runs them as scavenger jobs of a
+small simulated cluster (nodes of ``gpu: 4``) whose autoscaler drains one
+replica when a high-QOS batch job preempts it.  The weights are cast to
+the compute dtype once, before any engine is built, so every replica on
+the card reads the same weight set.
 """
 from __future__ import annotations
 
@@ -20,18 +28,24 @@ import time
 
 import numpy as np
 
+from repro_torch.cluster import (
+    Cluster, Node, Partition, ResourceRequest,
+)
 from repro_torch.cluster.commands import sdiag
 from repro_torch.configs import ARCH_IDS, RunConfig, get_config, \
     get_reduced_config
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params
+from repro_torch.models.model import cast_for_compute, compute_dtype
 from repro_torch.monitoring import MetricsRegistry, Tracer
 from repro_torch.monitoring.metrics import (
     METRIC_SERVE_PREFIX_EVICTIONS, METRIC_SERVE_PREFIX_HITS,
     METRIC_SERVE_PREFIX_MISSES, METRIC_SERVE_PREFIX_REUSED_TOKENS,
     METRIC_SERVE_TENANT_TOKENS,
 )
-from repro_torch.serving import AdmissionController, DecodeEngine, Request
+from repro_torch.serving import (
+    AdmissionController, Autoscaler, DecodeEngine, Request, Router,
+)
 
 #: page size that --prefix-cache, --max-batch-tokens and --speculate fall
 #: back to when --kv-paging is absent
@@ -119,7 +133,121 @@ def make_requests(args, cfg, names, qos_cycle) -> list:
     return requests
 
 
-def main(argv=None) -> int:
+def elastic_factory(args, cfg, params, metrics, kv_paging: int, device):
+    """The replica factory of ``--replicas``/``--autoscale``: an engine
+    wired to the admission controller the router gives it.  ``params``
+    must already be in the compute dtype (``cast_for_compute``), so that
+    the engine's own cast returns the same tensors and every replica
+    shares one weight set."""
+    def make_engine(admission):
+        return DecodeEngine(
+            cfg, params, num_slots=args.slots, cache_len=args.cache_len,
+            metrics=metrics, admission=admission,
+            run=RunConfig(use_kernels=True), seed=args.seed,
+            decode_chunk=args.decode_chunk, fused=not args.no_fused,
+            prefill_buckets=parse_buckets(args.prefill_buckets),
+            kv_page_size=kv_paging, kv_pages=args.kv_pages,
+            prefix_cache=args.prefix_cache,
+            max_batch_tokens=args.max_batch_tokens, device=device)
+    return make_engine
+
+
+def start_elastic(args, make_engine, metrics, tenants: dict):
+    """The router over ``--replicas`` engines; with ``--autoscale``, a
+    simulated cluster of ``max(replicas, 2)`` nodes of ``gpu: 4`` whose
+    autoscaler starts the replicas as scavenger jobs (one node each).
+    Returns ``(router, autoscaler, cluster)``, the last two None without
+    ``--autoscale``."""
+    router = Router(make_engine,
+                    replicas=0 if args.autoscale else args.replicas,
+                    policy="affinity" if args.affinity else "rr",
+                    spill_factor=args.spill_factor, metrics=metrics)
+    for name, share in tenants.items():
+        router.add_tenant(name, shares=share)
+    autoscaler = cluster = None
+    if args.autoscale:
+        n_nodes = max(args.replicas, 2)
+        nodes = [Node(name=f"n{i:02d}", cpus=16, mem_mb=65536,
+                      gres={"gpu": 4}) for i in range(n_nodes)]
+        cluster = Cluster(nodes, [Partition(
+            name="serve", nodes=tuple(nd.name for nd in nodes),
+            default=True)])
+        autoscaler = Autoscaler(
+            router, cluster,
+            req=ResourceRequest(nodes=1, gres_per_node={"gpu": 4},
+                                time_limit_s=36_000),
+            min_replicas=1, max_replicas=max(args.replicas, 1))
+        autoscaler.tick()
+        print(f"[serve] autoscaler: probe saw "
+              f"{autoscaler.stats['last_probe']} idle node(s), started "
+              f"{len(router.replicas)} replica(s) as scavenger jobs")
+    return router, autoscaler, cluster
+
+
+def run_waves(args, server, requests, autoscaler=None,
+              cluster=None) -> float:
+    """Push ``requests`` through ``server`` (an engine or the router) in
+    ``--bursts`` waves, three steps after each wave but the last; with an
+    autoscaler, after the first wave a high-QOS batch job preempts one
+    replica's job and the next tick drains that replica (its requests
+    resume elsewhere with their partial output).  Runs to completion;
+    returns the wall seconds."""
+    bursts = max(args.bursts, 1)
+    per_wave = -(-len(requests) // bursts)       # ceil division
+    t0 = time.perf_counter()
+    for w in range(bursts):
+        for req in requests[w * per_wave:(w + 1) * per_wave]:
+            server.submit(req)
+        if w < bursts - 1:
+            for _ in range(3):                    # let the wave decode a bit
+                server.step()
+        if autoscaler is not None and w == 0 and len(server.replicas) > 1:
+            cluster.submit("batch-train", ResourceRequest(
+                nodes=1, gres_per_node={"gpu": 4}), qos="high",
+                run_time_s=600.0)
+            autoscaler.tick()
+            print(f"[serve] batch pressure: drained down to "
+                  f"{len(server.replicas)} replica(s), "
+                  f"{server.stats['resubmitted']} request(s) re-routed")
+    server.run_to_completion()
+    return time.perf_counter() - t0
+
+
+def _serve_elastic(args, cfg, params, metrics, tenants, kv_paging, device,
+                   requests) -> int:
+    """--replicas/--autoscale: N engines behind the prefix-affinity
+    router, optionally as scavenger jobs in a small simulated cluster
+    with the autoscaler driving the replica count."""
+    if args.speculate or args.trace:
+        print("[serve] --replicas/--autoscale path ignores --speculate "
+              "and --trace (single-engine features)")
+    make_engine = elastic_factory(args, cfg, params, metrics, kv_paging,
+                                  device)
+    router, autoscaler, cluster = start_elastic(args, make_engine, metrics,
+                                                tenants)
+    wall = run_waves(args, router, requests, autoscaler, cluster)
+    total = int(metrics.counter("serve_tokens_generated").value())
+    busy = max(router.busy_seconds().values())
+    st = router.stats
+    print(f"served {len(requests)} requests on {len(router.replicas)} "
+          f"replica(s), {total} tokens in {wall:.1f}s "
+          f"({total / wall:,.1f} tok/s wall, busiest replica "
+          f"{busy:.1f}s busy)")
+    print(f"router: policy {router.policy}, {st['routed']} routed, "
+          f"{st['affinity_hits']} affinity hits, {st['spills']} spills, "
+          f"{st['drains']} drains ({st['resubmitted']} re-routed)")
+    if args.prefix_cache:
+        hits = int(metrics.counter(METRIC_SERVE_PREFIX_HITS).value())
+        misses = int(metrics.counter(METRIC_SERVE_PREFIX_MISSES).value())
+        reused = int(metrics.counter(
+            METRIC_SERVE_PREFIX_REUSED_TOKENS).value())
+        print(f"prefix cache (all replicas): {hits} hits / {misses} "
+              f"misses, {reused} prompt tokens reused")
+    print(sdiag(cluster=cluster, router=router, autoscaler=autoscaler))
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
     ap.add_argument("--arch", default="stablelm-3b", choices=ARCH_IDS)
     ap.add_argument("--reduced", action="store_true")
@@ -191,18 +319,50 @@ def main(argv=None) -> int:
     ap.add_argument("--bursts", type=int, default=1,
                     help="submit the workload in N bursts with a few "
                          "decode steps between waves")
+    ap.add_argument("--replicas", type=int, default=1, metavar="N",
+                    help="elastic serving: N decode-engine replicas "
+                         "behind the router; replicas share one "
+                         "fair-share ledger and one GrpTRES scope")
+    ap.add_argument("--affinity", action="store_true",
+                    help="prefix-affinity routing (consistent hash on "
+                         "the first prompt page, spill to least-loaded); "
+                         "default with --replicas is round-robin")
+    ap.add_argument("--spill-factor", type=float, default=2.0,
+                    help="with --affinity: shed to the least-loaded "
+                         "replica once the affine one's queue runs this "
+                         "many num_slots deeper (default 2.0)")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="run replicas as scavenger jobs in a small "
+                         "simulated cluster: the autoscaler grows to "
+                         "--replicas while idle nodes exist and drains "
+                         "replicas when a batch job preempts them")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the "
                          "kernels' plain versions)")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = (get_reduced_config(args.arch) if args.reduced
            else get_config(args.arch))
-    params = init_params(cfg, args.seed, device)
+    # cast once: the engine's own cast then returns these tensors, and
+    # the replicas of --replicas share them
+    params = cast_for_compute(init_params(cfg, args.seed, device),
+                              compute_dtype(cfg))
     metrics = MetricsRegistry()
     tenants = parse_tenants(args.tenants, args.shares) if args.tenants \
         else {"default": 1}
+    kv_paging = resolve_paging(args)
+    names = list(tenants)
+    qos_cycle = [q.strip() for q in args.qos.split(",") if q.strip()] \
+        or ["normal"]
+    requests = make_requests(args, cfg, names, qos_cycle)
+    if args.replicas > 1 or args.autoscale:
+        return _serve_elastic(args, cfg, params, metrics, tenants,
+                              kv_paging, device, requests)
     tracer = Tracer(metrics=metrics) if args.trace else None
     admission = AdmissionController(tracer=tracer)
     for name, share in tenants.items():
@@ -220,7 +380,7 @@ def main(argv=None) -> int:
                           decode_chunk=args.decode_chunk,
                           fused=not args.no_fused,
                           prefill_buckets=parse_buckets(args.prefill_buckets),
-                          kv_page_size=resolve_paging(args),
+                          kv_page_size=kv_paging,
                           kv_pages=args.kv_pages,
                           prefix_cache=args.prefix_cache,
                           max_batch_tokens=args.max_batch_tokens,
@@ -229,22 +389,7 @@ def main(argv=None) -> int:
                           spec_source=args.spec_source,
                           draft_model=draft_cfg,
                           device=device)
-    del params                               # the engine holds its cast copy
-    names = list(tenants)
-    qos_cycle = [q.strip() for q in args.qos.split(",") if q.strip()] \
-        or ["normal"]
-    requests = make_requests(args, cfg, names, qos_cycle)
-    bursts = max(args.bursts, 1)
-    per_wave = -(-len(requests) // bursts)       # ceil division
-    t0 = time.perf_counter()
-    for w in range(bursts):
-        for req in requests[w * per_wave:(w + 1) * per_wave]:
-            engine.submit(req)
-        if w < bursts - 1:
-            for _ in range(3):                    # let the wave decode a bit
-                engine.step()
-    engine.run_to_completion()
-    wall = time.perf_counter() - t0
+    wall = run_waves(args, engine, requests)
     total = int(metrics.counter("serve_tokens_generated").value())
     mode = ("host loop" if args.no_fused
             else f"fused chunk={args.decode_chunk}")

@@ -150,6 +150,36 @@ class PageAllocator:
         assert self._in_use >= 0, self._in_use
 
 
+class ShardedAllocatorView:
+    """Per-shard budget view over one :class:`PageAllocator`.
+
+    Under tensor parallelism every device holds its own head-slice of
+    every physical page, so one *logical* page id stands for ``shards``
+    device-local page slices allocated and freed in lockstep.  The slices
+    are symmetric — granting logical page ``p`` consumes one page on every
+    shard — so each budget vector is the scalar broadcast.  The port
+    serves on one card (``shards=1``); the router's per-replica page gauge
+    reads :meth:`in_use_vector`.
+    """
+
+    def __init__(self, allocator: PageAllocator, shards: int = 1):
+        assert shards >= 1, shards
+        self.allocator = allocator
+        self.shards = shards
+
+    def available_vector(self) -> np.ndarray:
+        """(shards,) free pages per shard."""
+        return np.full(self.shards, self.allocator.available(), np.int64)
+
+    def in_use_vector(self) -> np.ndarray:
+        """(shards,) pages with >= 1 holder, per shard."""
+        return np.full(self.shards, self.allocator.in_use, np.int64)
+
+    def min_available(self) -> int:
+        """Pages grantable on EVERY shard — the admission budget."""
+        return int(self.available_vector().min())
+
+
 class TwoLevelPageTable:
     """(directory, leaf) two-level logical->physical page map (host side).
 

@@ -82,7 +82,8 @@ from repro_torch.models.model import (
     prefill, prefill_chunk, prefill_suffix, sample_tokens, verify_tokens,
 )
 from repro_torch.models.paging import (
-    NULL_PAGE, PageAllocator, PagedKVConfig, TwoLevelPageTable, pages_for,
+    NULL_PAGE, PageAllocator, PagedKVConfig, ShardedAllocatorView,
+    TwoLevelPageTable, pages_for,
 )
 from repro_torch.monitoring import MetricsRegistry, Tracer
 from repro_torch.monitoring.metrics import (
@@ -207,6 +208,9 @@ class DecodeEngine:
                          w.get("gres/kv_token",
                                SERVING_TRES_WEIGHTS["gres/kv_token"]))
             self.allocator = PageAllocator(self.paging.num_pages)
+            # per-shard budget view (one shard on one card); the router's
+            # per-replica page gauge reads it
+            self.pool_view = ShardedAllocatorView(self.allocator, shards=1)
             # two-level (directory, leaf) page map: host memory scales
             # with pages actually mapped, not slots * pages_per_seq
             self._ptab = TwoLevelPageTable(num_slots,
@@ -496,6 +500,48 @@ class DecodeEngine:
                 (f"request {req.rid}: needs {req._est_pages} pages, pool "
                  f"has {self.paging.usable_pages}")
         self.admission.submit(req)
+
+    def active(self) -> int:
+        """Requests currently holding a decode slot."""
+        return sum(r is not None for r in self.slots)
+
+    def pending(self) -> int:
+        return self.admission.pending()
+
+    def load(self) -> int:
+        """Queue depth: slot holders plus queued requests — the router's
+        spill signal and the autoscaler's emptiest-replica criterion."""
+        return self.active() + self.pending()
+
+    def radix_occupancy(self) -> dict:
+        """Prefix-index occupancy for the router/sdiag surface: cached
+        pages currently indexed and how many of them are evictable."""
+        if self.prefix is None:
+            return {"nodes": 0, "evictable_pages": 0}
+        return {"nodes": self.prefix.nodes,
+                "evictable_pages": self.prefix.evictable_pages()}
+
+    def drain(self) -> list:
+        """Evict everything and hand it back: each slot holder leaves
+        through the preemption path (pages released, slot hold returned,
+        partial output retained — mid-prefill partials included, since
+        they hold their slot too), then every queued request is popped.
+        Returns all of them in arrival order, ready to resubmit elsewhere;
+        greedy decode is batch-independent, so a drained request goes on
+        with the tokens an undisturbed run gives (up to rounding ties)."""
+        for req in [r for r in self.slots if r is not None]:
+            self._evict(req)
+        drained = []
+        for t in self.admission.tenants.values():
+            drained.extend(t.queue)
+            t.queue.clear()
+        drained.sort(key=lambda r: r._seq)
+        return drained
+
+    @property
+    def queue(self) -> list:
+        """Flattened view of all tenant queues (compat/diagnostics)."""
+        return [r for t in self.admission.tenants.values() for r in t.queue]
 
     def _capacity(self, slot: int) -> int:
         """KV lines slot may write before growing (paged) / cache_len."""
@@ -1249,8 +1295,7 @@ class DecodeEngine:
                 progressed = True
             if not progressed:
                 break
-        return (len([r for r in self.slots if r is not None])
-                + self.admission.pending())
+        return self.load()
 
     # -------------------------------------------------------------- step ----
     def step(self) -> int:
@@ -1281,8 +1326,7 @@ class DecodeEngine:
             self._step_fused(active)
         else:
             self._step_host(active)
-        return (len([r for r in self.slots if r is not None])
-                + self.admission.pending())
+        return self.load()
 
     def _lane_vectors(self):
         """(done, eos, temps) per slot; mid-prefill slots count as done."""

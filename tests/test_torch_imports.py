@@ -2,7 +2,8 @@
 ``chip_smoke.py`` imports in a fresh interpreter whose import hook refuses
 ``jax`` and ``repro`` (the exact top-level names), and ``triton``; no
 kernel module builds or looks for ``nvcc`` at import.  The serve and
-train CLIs run every model family on the CPU at reduced size."""
+train CLIs run every model family on the CPU at reduced size, and the
+serve CLI two replicas behind the router."""
 import contextlib
 import io
 import json
@@ -72,7 +73,8 @@ def test_port_imports_without_jax_repro_or_triton(tmp_path):
                 "configs.starcoder2_3b", "configs.repro_100m",
                 "configs.qwen2_moe_a2_7b", "configs.dbrx_132b",
                 "configs.jamba_1_5_large_398b", "configs.pixtral_12b",
-                "configs.musicgen_large"):
+                "configs.musicgen_large", "serving.router",
+                "serving.autoscale"):
         assert f"repro_torch.{mod}" in out["modules"]
     assert not (tmp_path / "build").exists()
 
@@ -115,6 +117,18 @@ def test_serve_cli_runs_each_family(arch, one_thread):
     assert rc == 0
     # 3 of each request's 4 tokens come from decode calls
     assert "served 3 requests, 9 tokens" in out.getvalue()
+
+
+def test_serve_cli_runs_replicas(one_thread):
+    from repro_torch.launch import serve
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve.main(["--reduced", "--device", "cpu", "--replicas", "2",
+                         "--requests", "3", "--max-new", "4",
+                         "--cache-len", "64"])
+    assert rc == 0
+    assert "served 3 requests on 2 replica(s), 9 tokens" in out.getvalue()
+    assert "router: policy rr, 3 routed" in out.getvalue()
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "pixtral-12b",
