@@ -98,13 +98,33 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
    replicas' peak more than one KV pool + 1 GiB above one replica's.
    Then two replicas (one drained after the first step) against one
    engine, greedy, in f32 at 4 layers, as phase 6 does.
-12. summary — the kernels line, then the device line last.
+12. tensor parallel — full-width stablelm-3b served by two ranks that
+   share the card (``serving.tp.launch`` over gloo; NCCL takes one rank
+   per card), each with 16 of the 32 heads and half of d_ff, one f32
+   all-reduce per layer at attention-out and one at MLP-down; each rank
+   builds the bf16 weights from the seed and keeps its shard.  4 slots,
+   cache_len 512, decode chunk 8, 4 greedy requests: the dense cache, then
+   16-line pages with the prefix cache (prompts behind a shared 64-token
+   system prompt), each against tp=1 runs of this process; a steady
+   decode chunk per rank (rank 0's traced: device-busy share) with its
+   all-reduces counted and timed on the host; then f32 at 4 layers.  Fail
+   on a short request, ranks whose outputs differ, an f32 token that
+   differs from tp=1's at all, bf16 logits (phase 6's prompt, and the
+   context of a token that differs from tp=1's) farther from tp=1's than
+   phase 6's bound, a differing bf16 token whose tp=1 top-2 gap exceeds
+   twice that distance, an all-reduce count other than one
+   per layer and reduction point a token step, a kernel of the three
+   attention kernels that did not launch on a rank, no prefix hit, or a
+   rank's peak memory over its shard (its weights and its KV pool) + one
+   KV pool + 1 GiB.
+13. summary — the kernels line, then the device line last.
 
 Exits non-zero on any failure, and when no card is present.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -281,6 +301,11 @@ def kernel_phase(shape_cfg) -> dict:
         cases += [(1, 128, h, k, 128, None, bf16),
                   (1, cache_len, h, k, 128, None, bf16),
                   (1, 100, h, k, 128, None, f32)]
+    # the TP phase's shard: H/2 query heads over K/2 kv heads
+    Hs, Ks = H // 2, K // 2
+    cases += [(1, L, Hs, Ks, Dh, None, bf16), (1, cache_len, Hs, Ks, Dh,
+                                               None, bf16),
+              (1, 100, Hs, Ks, Dh, None, f32)]
     for B, S, h, k, d, window, dt in cases:
         q, kk, v = (rand(gen, (B, S, n, d), dt) for n in (h, k, k))
         got = fa.flash_attention_bshd(q, kk, v, window=window)
@@ -333,6 +358,15 @@ def kernel_phase(shape_cfg) -> dict:
             f"{time_ms(lambda: fa.flash_attention_bshd(qf, kf, vf)):.4f} "
             f"ms, SDPA {time_ms(lambda: gqa_sdpa(qf, kf, vf)):.4f} ms "
             f"(bound {b_f:.4f} ms, {by_f})")
+    # the TP phase's shard, for the record: each rank's prefill
+    qs, ks, vs = (rand(gen, (1, L, n, Dh), bf16) for n in (Hs, Ks, Ks))
+    b_s, by_s = bound_ms(2 * (2 * L * Hs * Dh + 2 * L * Ks * Dh),
+                         4 * Dh * Hs * L * (L + 1) / 2, bf16)
+    log(f"  flash_attention at the TP shard q(1,{L},{Hs},{Dh}) kv {Ks}: "
+        f"{time_ms(lambda: fa.flash_attention_bshd(qs, ks, vs)):.4f} ms, "
+        f"plain {time_ms(lambda: ref.attention_ref(qs, ks, vs)):.4f} ms, "
+        f"SDPA {time_ms(lambda: gqa_sdpa(qs, ks, vs)):.4f} ms (bound "
+        f"{b_s:.4f} ms, {by_s})")
 
     # ---- flash_decode: dense cache (and the ring) ------------------------
     errs = []
@@ -377,6 +411,10 @@ def kernel_phase(shape_cfg) -> dict:
         dcases += [(slots, cache_len, h, k, 128, None, bf16, bf16, positions),
                    (slots, cache_len, h, k, 128, None, f32, f32, positions),
                    (slots, cache_len, h, k, 128, None, bf16, bf16, edges)]
+    # the TP phase's shard (split_plan picks more splits at K/2)
+    dcases += [(slots, cache_len, Hs, Ks, Dh, None, bf16, bf16, positions),
+               (slots, cache_len, Hs, Ks, Dh, None, f32, f32, edges),
+               (slots, cache_len, Hs, Ks, Dh, None, f32, bf16, positions)]
     for B, S, h, k, d, window, qdt, kvdt, pos in dcases:
         q = rand(gen, (B, 1, h, d), qdt)
         # a head_dim that does not fill 16 bytes sits in a padded line, so
@@ -442,6 +480,22 @@ def kernel_phase(shape_cfg) -> dict:
         log(f"  flash_decode at q({slots},1,{h},128) cache "
             f"({slots},{cache_len},{k},128): {t_f:.4f} ms, SDPA "
             f"{lib_f:.4f} ms (bound {b_f:.4f} ms, {by_f})")
+    # the TP phase's shard, for the record: each rank's dense decode
+    qs = rand(gen, (slots, 1, Hs, Dh), bf16)
+    ks, vs = (rand(gen, (slots, cache_len, Ks, Dh), bf16) for _ in range(2))
+    chunk_s, n_s = fd.split_plan(cache_len, slots, Ks,
+                                 fd.sm_count(torch.cuda.current_device()))
+    b_s, by_s = bound_ms(
+        2 * (slots * cache_len * 2 * Ks * Dh + 2 * slots * Hs * Dh)
+        + 4 * slots, 4 * Hs * Dh * lines, bf16)
+    t_s = time_ms(lambda: fd.flash_decode_bshd(qs, ks, vs, full))
+    p_s = time_ms(lambda: ref.decode_attention_ref(qs, ks, vs, full))
+    lib_s = time_ms(lambda: F.scaled_dot_product_attention(
+        qs.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2)))
+    log(f"  flash_decode at the TP shard q({slots},1,{Hs},{Dh}) cache "
+        f"({slots},{cache_len},{Ks},{Dh}) ({n_s} splits of {chunk_s} "
+        f"lines): {t_s:.4f} ms, plain {p_s:.4f} ms, SDPA {lib_s:.4f} ms "
+        f"(bound {b_s:.4f} ms, {by_s})")
 
     # ---- flash_decode_paged ----------------------------------------------
     errs = []
@@ -463,7 +517,10 @@ def kernel_phase(shape_cfg) -> dict:
               (16, 16, 128, bf16, bf16, table_null, positions),
               (16, 16, 128, f32, f32, table_null, positions),
               (24, 2, 128, bf16, bf16, table_null, positions),
-              (24, 2, 128, f32, f32, table_full, positions)]
+              (24, 2, 128, f32, f32, table_full, positions),
+              # the TP phase's shard
+              (Hs, Ks, Dh, bf16, bf16, table_null, positions),
+              (Hs, Ks, Dh, f32, f32, table_full, positions)]
     for h, k, d, qdt, kvdt, table, pos in pcases:
         q = rand(gen, (slots, 1, h, d), qdt)
         kp, vp = (rand(gen, (num_pages, ps, k, d), kvdt) for _ in range(2))
@@ -489,6 +546,19 @@ def kernel_phase(shape_cfg) -> dict:
     nbytes = (2 * (lines * 2 * K * Dh + 2 * slots * H * Dh) + 4 * slots
               + 4 * slots * n_tab)
     b, by = bound_ms(nbytes, flops, bf16)
+    # the TP phase's shard, for the record: each rank's paged decode
+    qs = rand(gen, (slots, 1, Hs, Dh), bf16)
+    ks, vs = (rand(gen, (num_pages, ps, Ks, Dh), bf16) for _ in range(2))
+    b_s, by_s = bound_ms(
+        2 * (lines * 2 * Ks * Dh + 2 * slots * Hs * Dh) + 4 * slots
+        + 4 * slots * n_tab, 4 * Hs * Dh * lines, bf16)
+    t_s = time_ms(lambda: fd.flash_decode_paged_bshd(qs, ks, vs, table_full,
+                                                     full))
+    p_s = time_ms(lambda: ref.paged_decode_attention_ref(qs, ks, vs,
+                                                         table_full, full))
+    log(f"  flash_decode_paged at the TP shard q({slots},1,{Hs},{Dh}) pool "
+        f"({num_pages},{ps},{Ks},{Dh}): {t_s:.4f} ms, plain {p_s:.4f} ms, "
+        f"no library call (bound {b_s:.4f} ms, {by_s})")
     out["flash_decode_paged"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_decode.cu",
         replaces="src/repro/kernels/flash_decode.py:200",
@@ -920,20 +990,33 @@ def plain_paths_phase(cfg, params, args) -> dict:
     return out
 
 
+def last_logits(params, cfg, toks, use_kernels: bool, engine=None):
+    """f32 numpy logits at the last position of a prefill of ``toks``
+    ((1, S) int32 on the device): through ``params``, or through a TP
+    engine's shard of them under its reduction scope."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.models.model import prefill
+
+    scope = (engine.tp_scope() if engine is not None
+             else contextlib.nullcontext())
+    with torch.no_grad(), scope:
+        logits, _ = prefill(params, {"tokens": toks}, cfg,
+                            RunConfig(use_kernels=use_kernels))
+    return logits[0, -1].float().cpu().numpy()
+
+
+def first_difference(a, b):
+    return next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+
+
 def top2_gap(cfg, params, prompt, prefix_out, device="cuda") -> float:
     """The top-2 logit gap of the next token after ``prompt`` +
     ``prefix_out``, from a prefill of that context (the classic run's
     logits at that token, up to the prefill/decode summation order)."""
-    from repro_torch.configs import RunConfig
-    from repro_torch.models.model import prefill
-
     toks = np.concatenate([prompt, np.asarray(prefix_out, np.int32)])
-    with torch.no_grad():
-        logits, _ = prefill(params, {"tokens": torch.from_numpy(
-            toks.astype(np.int32)).to(device)[None]}, cfg,
-            RunConfig(use_kernels=True))
-    top = torch.topk(logits[0, -1].float(), 2).values
-    return float(top[0] - top[1])
+    top = np.sort(last_logits(params, cfg, torch.from_numpy(
+        toks.astype(np.int32)).to(device)[None], True))[-2:]
+    return float(top[1] - top[0])
 
 
 def identity_phase(cfg, args, device="cuda") -> dict:
@@ -964,7 +1047,7 @@ def identity_phase(cfg, args, device="cuda") -> dict:
             if a == b:
                 same += 1
                 continue
-            j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            j = first_difference(a, b)
             gap = top2_gap(c4, params, q.prompt, a[:j], device)
             log(f"  {label}: request {q.rid} differs at token {j} "
                 f"({a[j]} classic, {b[j]} here); classic top-2 gap "
@@ -982,6 +1065,22 @@ def identity_phase(cfg, args, device="cuda") -> dict:
         f"{ties}; launches {launches} (a check in f32 at 4 layers, not the "
         "main path: not in the kernels line)")
     return {"launches": launches, "ties": ties}
+
+
+def device_busy(prof) -> tuple:
+    """A trace's device kernels: (the union of their intervals in ms, the
+    (start, end, name) spans, device microseconds by kernel name)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, -math.inf
+    by_name: dict = {}
+    for s, e, name in spans:
+        busy_us += max(0.0, e - max(s, end))
+        end = max(end, e)
+        by_name[name] = by_name.get(name, 0.0) + (e - s)
+    return busy_us / 1e3, spans, by_name
 
 
 def profile_phase(cfg, params, args, paged: bool,
@@ -1021,15 +1120,7 @@ def profile_phase(cfg, params, args, paged: bool,
         engine.step()
         sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy_us, end = 0.0, -math.inf
-    by_name: dict = {}
-    for s, e, name in spans:
-        busy_us += max(0.0, e - max(s, end))
-        end = max(end, e)
-        by_name[name] = by_name.get(name, 0.0) + (e - s)
-    busy_ms = busy_us / 1e3
+    busy_ms, spans, by_name = device_busy(prof)
     device_part = (
         f"device busy {busy_ms:.2f} ms ({busy_ms / wall_ms:.1%}), "
         f"{len(spans)} device kernels ({len(spans) / chunk:.0f} per token "
@@ -1435,7 +1526,7 @@ def ssm_bucket_identity(cfg, args, device="cuda", layers=4) -> dict:
         if a == b:
             same += 1
             continue
-        j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        j = first_difference(a, b)
         gap = top2_gap(c, params, q.prompt, a[:j], device)
         log(f"  request {q.rid} differs at token {j} ({a[j]} exact, {b[j]} "
             f"bucketed); exact top-2 gap {gap:.3e}")
@@ -1614,11 +1705,18 @@ def elastic_cli(args, flags, device):
          "--device", str(device), *flags])
 
 
+def tree_gib(tree) -> float:
+    """The tensors of a nested dict/list tree, GiB."""
+    if isinstance(tree, dict):
+        return sum(tree_gib(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tree_gib(v) for v in tree)
+    return tree.numel() * tree.element_size() / 2**30
+
+
 def kv_gib(engine) -> float:
     """The engine's KV cache (its pool when paged), GiB."""
-    return sum(t.numel() * t.element_size()
-               for layer in engine.cache["layers"]
-               for t in layer.values()) / 2**30
+    return tree_gib(engine.cache)
 
 
 def elastic_run(cfg, params, args, label, flags, device="cuda") -> dict:
@@ -1747,8 +1845,7 @@ def elastic_identity(cfg, args, device="cuda", layers=4) -> dict:
         if q.output == a.output:
             same += 1
             continue
-        j = next(i for i, (x, y) in enumerate(zip(q.output, a.output))
-                 if x != y)
+        j = first_difference(q.output, a.output)
         gap = top2_gap(c, params, q.prompt, q.output[:j], device)
         log(f"  request {q.rid} differs at token {j} ({q.output[j]} one "
             f"engine, {a.output[j]} two replicas); top-2 gap {gap:.3e}")
@@ -1837,6 +1934,360 @@ def elastic_phase(args, device="cuda", reduced=False) -> dict:
     ident = elastic_identity(cfg, args, device)
     empty_cache(device)
     return {"runs": runs, "identity": ident}
+
+
+# ------------------------------------------------------ tensor parallel ----
+
+#: the TP phase's bf16 runs: a label, the request set of
+#: :func:`mode_requests` (greedy) and the engine options (every run: the
+#: serve phase's slots, cache and decode chunk, buckets "auto")
+TP_RUNS = (("dense", "serve", {}),
+           ("16-line pages, prefix cache", "prefix",
+            {"kv_page_size": 16, "prefix_cache": True}))
+#: its f32 identity runs on the serve phase's requests (depth cut to 4
+#: layers), tp=2 against tp=1
+TP_F32_RUNS = (("dense", {}), ("16-line pages", {"kv_page_size": 16}))
+
+
+def tp_engine(cfg, args, options, device, mesh=None, params=None):
+    """An engine of the TP phase.  Without ``params`` the weights are
+    built here from the seed in the compute dtype, so that under a mesh
+    only the engine's shard of them outlives the call."""
+    from repro_torch.models import init_params
+    from repro_torch.models.model import cast_for_compute, compute_dtype
+    from repro_torch.serving import DecodeEngine
+
+    if params is None:
+        params = cast_for_compute(init_params(cfg, SEED, device),
+                                  compute_dtype(cfg))
+    return DecodeEngine(cfg, params, num_slots=args["slots"],
+                        cache_len=args["cache_len"], seed=SEED,
+                        decode_chunk=args["decode_chunk"],
+                        prefill_buckets="auto", mesh=mesh,
+                        device=None if mesh is not None else device,
+                        **options)
+
+
+def tp_serve(engine, requests, device) -> dict:
+    """Serve ``requests`` to completion: the launch counts, the
+    all-reduce counts and the peak memory set to 0 just before, read just
+    after."""
+    from repro_torch.kernels import ops
+    from repro_torch.monitoring.metrics import METRIC_SERVE_PREFIX_HITS
+
+    for r in requests:
+        engine.submit(r)
+    gc.collect()
+    empty_cache(device)
+    sync(device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    engine.tp_counts.update(attn_out=0, mlp_out=0)
+    t0 = time.perf_counter()
+    engine.run_to_completion()
+    sync(device)
+    wall = time.perf_counter() - t0
+    m = engine.metrics
+    total = int(m.counter("serve_tokens_generated").value())
+    pre, dec = (m.histogram(n) for n in ("serve_prefill_seconds",
+                                          "serve_decode_seconds"))
+    return {"outputs": [list(r.output) for r in requests],
+            "done": all(r.done and len(r.output) == r.max_new_tokens
+                        for r in requests),
+            "tokens": total, "wall_s": wall, "tok_s": total / wall,
+            "prefill_ms": pre.sum() / max(pre.count(), 1) * 1e3,
+            "decode_ms": dec.sum() / max(dec.count(), 1) * 1e3,
+            "launches": ops.launch_counts(), "counts": dict(engine.tp_counts),
+            "hits": int(m.counter(METRIC_SERVE_PREFIX_HITS).value()),
+            "peak_gib": peak_gib(device)}
+
+
+def tp_chunk(engine, args, device, profile: bool) -> dict:
+    """One steady decode chunk of the engine (every slot live with a
+    100-token prompt, nothing to admit), as :func:`profile_phase` takes
+    it: its all-reduces counted and timed on the host clock, and, with
+    ``profile``, a device-only ``torch.profiler`` trace of it."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(SEED + 2)
+    chunk = args["decode_chunk"]
+    for rid in range(args["slots"]):
+        engine.submit(Request(
+            rid=100 + rid, prompt=rng.integers(
+                2, engine.cfg.vocab_size, 100).astype(np.int32),
+            max_new_tokens=4 * chunk))
+    engine.step()                          # prefill every slot + a chunk
+    engine.step()                          # warm
+    sync(device)
+    engine.tp_counts.update(attn_out=0, mlp_out=0)
+    real, spent = dist.all_reduce, []
+
+    def timed(t, *a, **k):
+        t0 = time.perf_counter()
+        try:
+            return real(t, *a, **k)
+        finally:
+            spent.append(time.perf_counter() - t0)
+
+    dist.all_reduce = timed
+    prof = None
+    try:
+        # device activity only on the card (see profile_phase)
+        act = (ProfilerActivity.CUDA if torch.device(device).type == "cuda"
+               else ProfilerActivity.CPU)
+        ctx = (torch_profile(activities=[act]) if profile
+               else contextlib.nullcontext())
+        with ctx as prof:
+            # both ranks start the chunk together, past the profiler's start
+            dist.barrier(group=engine.mesh.cpu_group)
+            t0 = time.perf_counter()
+            engine.step()
+            sync(device)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        dist.all_reduce = real
+    out = {"wall_ms": wall_ms, "counts": dict(engine.tp_counts),
+           "allreduce_ms": sum(spent) * 1e3, "allreduces": len(spent),
+           "busy_ms": None, "kernels": None}
+    if profile:
+        busy, spans, by_name = device_busy(prof)
+        out.update(busy_ms=busy if spans else None, kernels=len(spans),
+                   top=sorted(by_name.items(), key=lambda kv: -kv[1])[:5])
+    engine.run_to_completion()
+    return out
+
+
+def tp_rank(mesh, cfg, f32cfg, args, ref_outputs) -> dict:
+    """One rank of the TP phase, a process of its own: the bf16 runs of
+    ``TP_RUNS`` (the weights built from the seed on the rank's device and
+    sharded by the engine, the rest freed), a steady chunk after the
+    dense run (traced on rank 0), then the f32 runs of ``TP_F32_RUNS``.
+    After each bf16 run, the logits of the context of every request's
+    first token that differs from ``ref_outputs`` (tp=1's), and, after
+    the dense run, of phase 6's consistency prompt."""
+    dev = mesh.device
+    out = {"runs": [], "f32": []}
+    for i, (label, kind, options) in enumerate(TP_RUNS):
+        engine = tp_engine(cfg, args, options, dev, mesh)
+        reqs = mode_requests(cfg, kind, args, greedy=True)
+        r = tp_serve(engine, reqs, dev)
+        r.update(label=label, weights_gib=tree_gib(engine.params),
+                 kv_gib=kv_gib(engine), plan=engine.tp.describe(cfg),
+                 per_token=engine.tp.psums_per_token(cfg), flips=[])
+        for q, a in zip(reqs, ref_outputs[label]):
+            if q.output != a:
+                j = first_difference(a, q.output)
+                ctx = torch.from_numpy(np.concatenate(
+                    [q.prompt, np.asarray(a[:j], np.int32)])).to(dev)[None]
+                r["flips"].append((q.rid, j, last_logits(
+                    engine.params, cfg, ctx, True, engine)))
+        if i == 0:
+            r["consistency"] = last_logits(
+                engine.params, cfg, consistency_prompt(cfg, dev), True,
+                engine)
+            r["chunk"] = tp_chunk(engine, args, dev, mesh.rank == 0)
+        out["runs"].append(r)
+        del engine
+    for label, options in TP_F32_RUNS:
+        engine = tp_engine(f32cfg, args, options, dev, mesh)
+        r = tp_serve(engine, serve_requests(f32cfg, args, greedy=True), dev)
+        out["f32"].append(dict(r, label=label))
+        del engine
+    return out
+
+
+def tp_flip(cfg, params, toks, l2, what, flip=False):
+    """Hold tp=2's bf16 logits ``l2`` at the last position of ``toks`` to
+    tp=1's: their distance within phase 6's bf16 bound (0.05 + 2x tp=1's
+    own distance from an f32 run of the same weights) and, where the
+    argmax parted (``flip``), tp=1's top-2 gap within twice that distance:
+    a token may differ only where the sums' rounding can move it."""
+    l1 = last_logits(params, cfg, toks, True)
+    l32 = last_logits(params, dataclasses.replace(cfg, dtype="float32"),
+                      toks, False)
+    d = float(np.abs(l2 - l1).max())
+    bound = 0.05 + 2 * float(np.abs(l1 - l32).max())
+    top = np.sort(l1)[-2:]
+    gap = float(top[1] - top[0])
+    log(f"  tp {what}: |tp=2 - tp=1| {d:.4f} (bound {bound:.4f}); tp=1 "
+        f"top-2 gap {gap:.4f}")
+    if d > bound or (flip and gap > 2 * d):
+        raise AssertionError(f"tp {what}: |tp=2 - tp=1| {d} against a "
+                             f"bound of {bound}, top-2 gap {gap}")
+
+
+def tp_phase(args, device="cuda", reduced=False) -> dict:
+    """Tensor-parallel serving of stablelm-3b at full width (``reduced``:
+    the reduced config, for a rehearsal on the CPU) on two ranks over
+    gloo, both on ``device`` (the one card): :func:`tp_rank` in each,
+    through ``serving.tp.launch``; the tp=1 references run in this
+    process first.  Gates: every request finishes with its token count;
+    the ranks' outputs are identical; in f32 at 4 layers the tokens equal
+    tp=1's, dense and paged; in bf16 the logits of phase 6's consistency
+    prompt, and of the context of any token that differs from tp=1's, lie
+    within :func:`tp_flip`'s bound of tp=1's, and a differing token's
+    tp=1 top-2 gap within twice their distance (bf16 logits are
+    quantised at 2^-4 from magnitude 8: an f32-sized gap does not exist
+    there); one
+    steady decode token step issues one all-reduce per layer at each
+    reduction point; on the card every rank launched all three attention
+    kernels, and a rank's peak memory exceeds its shard (its weights and
+    its KV pool) by at most one KV pool + 1 GiB.  Returns the runs (their
+    launches, summed over the ranks, are main-path launches) and the
+    identity check."""
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.models import init_params
+    from repro_torch.models.model import cast_for_compute, compute_dtype
+    from repro_torch.serving import tp as tp_mod
+
+    cfg = (get_reduced_config if reduced else get_config)("stablelm-3b")
+    f32cfg = dataclasses.replace(
+        cfg, num_layers=min(cfg.num_layers, 4), dtype="float32")
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    if on_card and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    gc.collect()
+    empty_cache(device)
+    t_phase = time.perf_counter()
+    # the tp=1 references, greedy, on the same requests
+    params = cast_for_compute(init_params(cfg, SEED, device),
+                              compute_dtype(cfg))
+    ref = {label: tp_serve(tp_engine(cfg, args, options, device,
+                                     params=params),
+                           mode_requests(cfg, kind, args, greedy=True),
+                           device)
+           for label, kind, options in TP_RUNS}
+    p32 = init_params(f32cfg, SEED, device)
+    ref32 = {label: tp_serve(tp_engine(f32cfg, args, options, device,
+                                       params=p32),
+                             serve_requests(f32cfg, args, greedy=True),
+                             device)
+             for label, options in TP_F32_RUNS}
+    del p32
+    gc.collect()
+    empty_cache(device)
+    t0 = time.perf_counter()
+    ranks = tp_mod.launch(tp_rank, 2, devices=[device] * 2, backend="gloo",
+                          args=(cfg, f32cfg, args,
+                                {k: r["outputs"] for k, r in ref.items()}),
+                          threads=None if on_card else 1)
+    launch_s = time.perf_counter() - t0
+    # f32 first: there the reductions' order cannot move a token
+    same = 0
+    for i, (label, _) in enumerate(TP_F32_RUNS):
+        want = ref32[label]["outputs"]
+        for k, rk in enumerate(ranks):
+            got = rk["f32"][i]
+            if not got["done"] or got["outputs"] != want:
+                raise AssertionError(f"tp identity: f32 {label} on rank "
+                                     f"{k} differs from tp=1: "
+                                     f"{got['outputs']} vs {want}")
+        same += len(want)
+    log(f"  f32, {f32cfg.num_layers} layers: {same}/{same} requests token "
+        "for token equal to tp=1 on both ranks, dense and paged (a check, "
+        "not the main path: its launches are not in the kernels line)")
+    runs, flips = [], 0
+    for i, (label, kind, options) in enumerate(TP_RUNS):
+        per = [rk["runs"][i] for rk in ranks]
+        one = ref[label]
+        for k, r in enumerate(per):
+            log(f"  tp=2 {label}, rank {k}: {r['tokens']} decode tokens in "
+                f"{r['wall_s']:.3f} s = {r['tok_s']:.1f} tok/s (tp=1 in "
+                f"this phase: {one['tok_s']:.1f}, peak "
+                f"{one['peak_gib']:.2f} GiB); prefill mean "
+                f"{r['prefill_ms']:.2f} ms, decode chunk mean "
+                f"{r['decode_ms']:.2f} ms; prefix hits {r['hits']}; "
+                f"weights {r['weights_gib']:.3f} GiB + KV "
+                f"{r['kv_gib']:.3f} GiB a rank, peak {r['peak_gib']:.2f} "
+                f"GiB; all-reduces {r['counts']}; launches "
+                f"{r['launches']}")
+            if not r["done"]:
+                raise AssertionError(f"tp {label}: rank {k} returned a "
+                                     "short request")
+            if on_card and r["peak_gib"] > (r["weights_gib"]
+                                            + 2 * r["kv_gib"] + 1):
+                raise AssertionError(
+                    f"tp {label}: rank {k} peaked at {r['peak_gib']:.2f} "
+                    f"GiB, over its shard ({r['weights_gib']:.2f} + "
+                    f"{r['kv_gib']:.2f} GiB) + a KV pool + 1 GiB")
+        if per[0]["outputs"] != per[1]["outputs"]:
+            raise AssertionError(f"tp {label}: the ranks' outputs differ")
+        if options.get("prefix_cache") and per[0]["hits"] == 0:
+            raise AssertionError(f"tp {label}: no prefix hit")
+        reqs = {q.rid: q for q in mode_requests(cfg, kind, args,
+                                                greedy=True)}
+        for rid, j, l2 in per[0]["flips"]:
+            q, a = reqs[rid], one["outputs"][rid]
+            toks = torch.from_numpy(np.concatenate(
+                [q.prompt, np.asarray(a[:j], np.int32)])).to(device)[None]
+            tp_flip(cfg, params, toks, l2, f"{label}: request {rid} differs "
+                    f"from tp=1 at token {j} ({a[j]} tp=1, "
+                    f"{per[0]['outputs'][rid][j]} tp=2)", flip=True)
+            flips += 1
+        if i == 0:
+            tp_flip(cfg, params, consistency_prompt(cfg, device),
+                    per[0]["consistency"], "consistency prompt (phase 6's), "
+                    "prefill logits")
+        runs.append({"label": f"tp=2 {label}", "tok_s": per[0]["tok_s"],
+                     "tp1_tok_s": one["tok_s"],
+                     "peak_gib": [r["peak_gib"] for r in per],
+                     "outputs": [r["outputs"] for r in per],
+                     "launches": {n: sum(r["launches"][n] for r in per)
+                                  for n in per[0]["launches"]}})
+    if on_card:
+        # what the per-rank sizes buy: KV slots that fit beside the
+        # weights at equal memory a device (activations aside)
+        hbm = torch.cuda.get_device_properties(device).total_memory / 2**30
+        r = ranks[0]["runs"][0]
+        w1, kv_slot = tree_gib(params), r["kv_gib"] / args["slots"]
+        n1 = (hbm - w1) / (2 * kv_slot)
+        n2 = (hbm - r["weights_gib"]) / kv_slot
+        log(f"  at equal memory a device ({hbm:.1f} GiB), KV for "
+            f"{n1:.0f} slots beside tp=1's {w1:.3f} GiB of weights, "
+            f"{n2:.0f} a rank beside tp=2's {r['weights_gib']:.3f} GiB "
+            f"({n2 / n1:.2f}x; {cfg.num_layers} layers x {args['cache_len']}"
+            f" lines a slot, from the sizes measured above)")
+    del params
+    empty_cache(device)
+    chunk = args["decode_chunk"]
+    for k, rk in enumerate(ranks):
+        c = rk["runs"][0]["chunk"]
+        want = {n: m * chunk for n, m in rk["runs"][0]["per_token"].items()}
+        share = c["allreduce_ms"] / c["wall_ms"]
+        busy = ("" if c["busy_ms"] is None else
+                f"; device busy {c['busy_ms']:.2f} ms "
+                f"({c['busy_ms'] / c['wall_ms']:.1%}), {c['kernels']} "
+                "device kernels")
+        log(f"  rank {k}, one steady dense decode chunk ({chunk} tokens x "
+            f"{args['slots']} slots): wall {c['wall_ms']:.2f} ms; "
+            f"{c['allreduces']} all-reduces {c['counts']} taking "
+            f"{c['allreduce_ms']:.2f} ms on the host ({share:.1%} of the "
+            f"chunk, {c['allreduce_ms'] / max(c['allreduces'], 1):.3f} ms "
+            f"each){busy}")
+        for name, us in c.get("top") or ():
+            log(f"    {us / 1e3:8.3f} ms  {name[:100]}")
+        if c["counts"] != want:
+            raise AssertionError(f"tp: rank {k} issued {c['counts']} "
+                                 f"all-reduces in a chunk of {chunk} token "
+                                 f"steps, not {want}")
+    if on_card:
+        for k, rk in enumerate(ranks):
+            for name in ("flash_attention", "flash_decode",
+                         "flash_decode_paged"):
+                if sum(r["launches"][name] for r in rk["runs"]) == 0:
+                    raise AssertionError(f"tp: kernel {name} never "
+                                         f"launched on rank {k}")
+    log(f"  plan {ranks[0]['runs'][0]['plan']}; bf16 requests that part "
+        f"from tp=1 (each within the rounding, above): {flips}; ranks' "
+        f"launch {launch_s:.1f} s, phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"runs": runs, "identity": {"same": same, "total": same,
+                                       "flips": flips}}
 
 
 # -------------------------------------------------------------- cluster ----
@@ -2075,12 +2526,12 @@ def main(argv=None) -> int:
         """Seconds since the start, for the phase headers."""
         return f"at {time.perf_counter() - t_start:.1f} s"
 
-    log(f"[1/12] device: {smi} | torch {torch.__version__} cuda "
+    log(f"[1/13] device: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     build.build_all(verbose=True)
-    log(f"[2/12] build: kernels built in {time.perf_counter() - t0:.1f} s "
+    log(f"[2/13] build: kernels built in {time.perf_counter() - t0:.1f} s "
         f"({build.BUILD_ROOT / build.source_hash()})")
 
     cfg = get_config("stablelm-3b")
@@ -2088,7 +2539,7 @@ def main(argv=None) -> int:
     targs = dict(batch=4, microbatches=2, seq_len=2048, steps=4)
     shape = dict(H=cfg.num_heads, K=cfg.num_kv_heads, Dh=cfg.head_dim,
                  slots=4, cache_len=512, prefill_len=128)
-    log(f"[3/12] {at()}: kernels vs plain versions (tolerance bf16 "
+    log(f"[3/13] {at()}: kernels vs plain versions (tolerance bf16 "
         f"{TOL[torch.bfloat16]}, f32 {TOL[torch.float32]}; times: median "
         "of 20 launches, L2 flushed, queued behind a sleep: device time "
         "only):")
@@ -2101,7 +2552,7 @@ def main(argv=None) -> int:
         return 0
     grad_phase()
 
-    log(f"[4/12] {at()}: serve: full-width {cfg.name} ({cfg.num_layers} "
+    log(f"[4/13] {at()}: serve: full-width {cfg.name} ({cfg.num_layers} "
         f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads x "
         f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), random "
         f"weights seed {SEED}, bf16 compute")
@@ -2123,14 +2574,14 @@ def main(argv=None) -> int:
     profiles = {kind: profile_phase(cfg, params, args, kind == "paged")
                 for kind in ("dense", "paged")}
 
-    log(f"[5/12] {at()}: serve modes: full-width {cfg.name}, bf16, "
+    log(f"[5/13] {at()}: serve modes: full-width {cfg.name}, bf16, "
         f"{args['slots']} slots, cache {args['cache_len']}, 16-line pages, "
         f"decode chunk {args['decode_chunk']}, {args['requests']} requests "
         f"of {args['max_new']} tokens a run")
     modes = serve_modes_phase(cfg, params, args)
     plain_paths_phase(cfg, params, args)
 
-    log(f"[6/12] {at()}: consistency at full width (kernels vs plain "
+    log(f"[6/13] {at()}: consistency at full width (kernels vs plain "
         "versions):")
     consistency_phase(cfg, params)
     del params
@@ -2141,7 +2592,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     ssm = tcfg.ssm
-    log(f"[7/12] {at()}: train: full-width {tcfg.name} ({tcfg.num_layers} "
+    log(f"[7/13] {at()}: train: full-width {tcfg.name} ({tcfg.num_layers} "
         f"layers, d_model {tcfg.d_model}, {ssm.num_heads(tcfg.d_model)} SSD "
         f"heads x {ssm.head_dim}, state {ssm.state}, chunk {ssm.chunk}, vocab "
         f"{tcfg.vocab_size}), f32 weights seed {SEED}, bf16 compute, f32 "
@@ -2150,25 +2601,25 @@ def main(argv=None) -> int:
     train = train_phase(tcfg, targs, kernels["ssd_scan"]["ms"])
     torch.cuda.empty_cache()
 
-    log(f"[8/12] {at()}: train consistency at full width (kernels vs plain "
+    log(f"[8/13] {at()}: train consistency at full width (kernels vs plain "
         "vs f32):")
     train_consistency_phase(tcfg, targs)
     torch.cuda.empty_cache()
 
-    log(f"[9/12] {at()}: cluster: a scavenger job trains {tcfg.name} as "
+    log(f"[9/13] {at()}: cluster: a scavenger job trains {tcfg.name} as "
         f"phase 7 does, a high-QOS job serving {cfg.name} preempts it, it "
         "requeues and resumes from its checkpoint")
     clus = cluster_phase(tcfg, targs, cfg, args, train["losses"])
     torch.cuda.empty_cache()
 
-    log(f"[10/12] {at()}: families: SSM serving of mamba2-780m, MoE "
+    log(f"[10/13] {at()}: families: SSM serving of mamba2-780m, MoE "
         f"serving of qwen2-moe-a2.7b, starcoder2-3b; full width, "
         f"{args['slots']} slots, cache {args['cache_len']}, one wave of 4 "
         f"requests of {args['max_new']} tokens a run (two for n-gram "
         f"speculation), decode chunk {args['decode_chunk']}")
     fam = families_phase(dict(args, requests=4))
 
-    log(f"[11/12] {at()}: elastic: full-width {cfg.name} replicas sharing "
+    log(f"[11/13] {at()}: elastic: full-width {cfg.name} replicas sharing "
         f"one card and one bf16 weight set behind the router; "
         f"{args['slots']} slots, cache {args['cache_len']}, decode chunk "
         f"{args['decode_chunk']} a replica; {args['requests']} requests "
@@ -2176,10 +2627,19 @@ def main(argv=None) -> int:
         "system prompts in turn")
     elastic = elastic_phase(args)
 
+    log(f"[12/13] {at()}: tensor parallel: full-width {cfg.name} split "
+        f"over two ranks sharing the card (gloo), {cfg.num_heads // 2} of "
+        f"{cfg.num_heads} heads and {cfg.d_ff // 2} of d_ff {cfg.d_ff} a "
+        f"rank, bf16; {args['slots']} slots, cache {args['cache_len']}, "
+        f"decode chunk {args['decode_chunk']}, 4 greedy requests of "
+        f"{args['max_new']} tokens a run; dense, then 16-line pages with "
+        "the prefix cache; then f32 at 4 layers against tp=1")
+    tp = tp_phase(dict(args, requests=4))
+
     # the main path's serve runs: the f32 4-layer identity runs are a
     # check, not the path, and log their launches on their own line
     serve_runs = [dense, paged, *modes.values(), *fam["runs"],
-                  *elastic["runs"]]
+                  *elastic["runs"], *tp["runs"]]
     launches = {name: sum(r["launches"][name] for r in serve_runs)
                 for name in ("flash_attention", "flash_decode",
                              "flash_decode_paged")}
@@ -2195,7 +2655,9 @@ def main(argv=None) -> int:
                           for r in fam["runs"])
     elastic_rates = ", ".join(f"{r['label']} {r['tok_s']:.1f}"
                               for r in elastic["runs"])
-    log(f"[12/12] summary ({time.perf_counter() - t_start:.1f} s; serve "
+    tp_rates = ", ".join(f"{r['label']} {r['tok_s']:.1f} (tp=1 "
+                         f"{r['tp1_tok_s']:.1f})" for r in tp["runs"])
+    log(f"[13/13] summary ({time.perf_counter() - t_start:.1f} s; serve "
         f"dense {dense['tok_s']:.1f} tok/s, paged {paged['tok_s']:.1f} "
         f"tok/s; modes {mode_rates} tok/s; decode kernel per token step "
         f"dense "
@@ -2204,10 +2666,11 @@ def main(argv=None) -> int:
         f"{train['tok_s']:,.0f} tok/s, {train['step_s']:.3f} s/step, peak "
         f"{train['peak_gib']:.2f} GiB; cluster phase {clus['wall_s']:.1f} "
         f"s, losses bit-identical to phase 7's; families {fam_rates} "
-        f"tok/s; elastic {elastic_rates} tok/s wall; launches summed over "
-        "the main path: the bf16 serve runs (dense, paged, the four "
-        "modes, the families' five runs, the elastic phase's five), the "
-        "kept train steps and the cluster phase's two jobs)")
+        f"tok/s; elastic {elastic_rates} tok/s wall; {tp_rates} tok/s; "
+        "launches summed over the main path: the bf16 serve runs (dense, "
+        "paged, the four modes, the families' five runs, the elastic "
+        "phase's five, the TP phase's two on both ranks), the kept train "
+        "steps and the cluster phase's two jobs)")
     log("kernels " + json.dumps(summary))
     log(smi)
     line = {"kernels": [dict(name=name, route=r["route"], source=r["source"],

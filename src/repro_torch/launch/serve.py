@@ -13,6 +13,12 @@ prompt), ``--max-batch-tokens [T]``, ``--speculate [K]`` with
 ``--spec-source`` and ``--draft-model``, ``--no-fused`` and ``--trace
 OUT_JSON``.  The first three imply ``--kv-paging 16``.
 
+Tensor-parallel serving, as in the JAX CLI: ``--tp N`` runs N ranks
+(``serving.tp.launch``), each a process holding 1/N of the attention
+heads and of d_ff, one card a rank over NCCL; with ``--device cpu`` the N
+ranks are gloo processes on the CPU.  Fewer cards than N run tp=1 with
+the JAX CLI's warning.  Rank 0's output is printed.
+
 Elastic serving, as in the JAX CLI: ``--replicas N`` puts N engines behind
 the prefix-affinity router (``--affinity``, ``--spill-factor F``; round
 robin otherwise), and ``--autoscale`` runs them as scavenger jobs of a
@@ -24,9 +30,12 @@ the card reads the same weight set.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.cluster import (
     Cluster, Node, Partition, ResourceRequest,
@@ -46,6 +55,7 @@ from repro_torch.monitoring.metrics import (
 from repro_torch.serving import (
     AdmissionController, Autoscaler, DecodeEngine, Request, Router,
 )
+from repro_torch.serving import tp as tp_mod
 
 #: page size that --prefix-cache, --max-batch-tokens and --speculate fall
 #: back to when --kv-paging is absent
@@ -67,6 +77,24 @@ def resolve_paging(args) -> int:
                   f"{DEFAULT_PAGE_SIZE}-line pages")
             return DEFAULT_PAGE_SIZE
     return 0
+
+
+def resolve_tp(requested: int, n_devices: int) -> int:
+    """``--tp`` with a graceful fallback: fewer visible devices than the
+    requested shard count downgrades to tp=1 with a warning (and a hint
+    at the forced-host-device recipe) instead of crashing the deploy.
+    The JAX CLI's function and message, word for word; the port's way to
+    rehearse N shards on the CPU is ``--device cpu``, whose N gloo ranks
+    are the forced host devices' counterpart."""
+    if requested <= 1:
+        return 1
+    if n_devices < requested:
+        print(f"[serve] --tp {requested}: only {n_devices} device(s) "
+              f"visible — running tp=1 (set XLA_FLAGS="
+              f"--xla_force_host_platform_device_count={requested} before "
+              f"import to fake devices on CPU)")
+        return 1
+    return requested
 
 
 def parse_tenants(spec: str, shares: str = "") -> dict[str, int]:
@@ -218,7 +246,10 @@ def _serve_elastic(args, cfg, params, metrics, tenants, kv_paging, device,
     """--replicas/--autoscale: N engines behind the prefix-affinity
     router, optionally as scavenger jobs in a small simulated cluster
     with the autoscaler driving the replica count."""
-    if args.speculate or args.trace:
+    if args.tp > 1:
+        print("[serve] --replicas/--autoscale path ignores --tp, "
+              "--speculate and --trace (single-engine features)")
+    elif args.speculate or args.trace:
         print("[serve] --replicas/--autoscale path ignores --speculate "
               "and --trace (single-engine features)")
     make_engine = elastic_factory(args, cfg, params, metrics, kv_paging,
@@ -264,6 +295,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefill-buckets", default="auto",
                     help="'auto' (power-of-two), 'off', or comma lengths "
                          "e.g. 32,64,128 — prompts pad to the next bucket")
+    ap.add_argument("--tp", type=int, default=1, metavar="N",
+                    help="tensor-parallel serving over N ranks: the "
+                         "weights, the decode calls and the KV cache "
+                         "shard over a (1, N) mesh's 'model' axis, one "
+                         "card a rank (gloo processes with --device cpu); "
+                         "f32 greedy output stays as at --tp 1 (falls "
+                         "back to 1 when fewer cards are visible)")
     ap.add_argument("--kv-paging", type=int, default=0, metavar="PAGE_SIZE",
                     help="paged KV cache with PAGE_SIZE-line pages "
                          "(0 = dense per-slot cache)")
@@ -346,6 +384,35 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     device = resolve_device(args.device)
+    tp = resolve_tp(args.tp, args.tp if device.type == "cpu"
+                    else torch.cuda.device_count())
+    if tp > 1 and not (args.replicas > 1 or args.autoscale):
+        if device.type == "cpu":
+            devices, backend = ["cpu"] * tp, "gloo"
+            threads = max(1, torch.get_num_threads() // tp)
+        else:
+            devices, backend = [f"cuda:{i}" for i in range(tp)], "nccl"
+            threads = None
+        outs = tp_mod.launch(_serve_rank, tp, devices=devices,
+                             backend=backend, args=(args,), threads=threads)
+        print(outs[0], end="")
+        return 0
+    return serve(args, device)
+
+
+def _serve_rank(mesh, args) -> str:
+    """One rank of ``--tp``: the whole serve run on the rank's device;
+    returns what it printed (rank 0's is the CLI's output)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve(args, mesh.device, mesh)
+    return out.getvalue()
+
+
+def serve(args, device, mesh=None) -> int:
+    """The serve run of ``args`` on ``device`` (one rank of ``mesh``
+    under ``--tp``): build the weights from the seed, serve the synthetic
+    requests, print the report."""
     cfg = (get_reduced_config(args.arch) if args.reduced
            else get_config(args.arch))
     # cast once: the engine's own cast then returns these tensors, and
@@ -388,7 +455,9 @@ def main(argv=None) -> int:
                           speculate=args.speculate,
                           spec_source=args.spec_source,
                           draft_model=draft_cfg,
+                          mesh=mesh,
                           device=device)
+    del params              # the rank's shard is all that stays under --tp
     wall = run_waves(args, engine, requests)
     total = int(metrics.counter("serve_tokens_generated").value())
     mode = ("host loop" if args.no_fused
@@ -405,6 +474,12 @@ def main(argv=None) -> int:
               f"(high-water {engine.allocator.high_water}, "
               f"{int(metrics.counter('serve_page_starvations').value())} "
               f"starvation requeues)")
+    if engine.tp.tp > 1:
+        ps = engine.tp.psums_per_token(cfg)
+        print(f"tensor parallel: {engine.tp.describe(cfg)} on "
+              f"{len(engine.tp.devices())} devices, "
+              f"{sum(ps.values())} psums/token "
+              f"(attn {ps['attn_out']}, mlp {ps['mlp_out']})")
     if engine.max_batch_tokens is not None:
         st = engine.serve_stats
         spent = st["decode_tokens"] + st["prefill_tokens"]

@@ -1,8 +1,10 @@
 """GQA attention: full-sequence training, prefill (q-block chunked
 reference path or the flash kernel) and one-token decode over a dense,
 ring or paged KV cache — the port of the JAX package's
-``models/attention.py`` for the serving and training paths, without
-tensor parallelism.
+``models/attention.py`` for the serving and training paths.  Under
+serving tensor parallelism (``serving/tp.py``) a shard holds a slice of
+the heads; every function here reads head counts from its tensors, and
+:func:`out_proj` is one of the two reduction points.
 
 ``use_kernels`` routes the attention core through
 ``repro_torch.kernels.ops`` (the CUDA kernels on the card, their plain
@@ -25,6 +27,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.actshard import maybe_psum, tp_will_reduce
 from repro_torch.kernels import ops as kops
 
 _NEG_INF = -1e30
@@ -76,7 +79,16 @@ def qkv_proj(p: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def out_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+    # contracts the heads — under serving TP each shard holds a partial
+    # sum here, hence one cross-shard reduction per attention layer.  The
+    # partial stays f32 through it (a product of the upcast operands:
+    # exact products, only the summation order differs) and is rounded
+    # once, as the one-shard contraction rounds its accumulator once
+    w = p["wo"].to(o.dtype)
+    if tp_will_reduce("attn_out"):
+        part = torch.einsum("bshk,hkd->bsd", o.float(), w.float())
+        return maybe_psum(part, "attn_out").to(o.dtype)
+    return torch.einsum("bshk,hkd->bsd", o, w)
 
 
 # ------------------------------------------------- blockwise causal core ----
@@ -160,20 +172,23 @@ def attention_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def init_kv_cache(cfg: ModelConfig, batch: int, cache_len: int,
                   n_groups: int, dtype=torch.bfloat16, device=None,
-                  paging=None):
+                  paging=None, kv_heads: Optional[int] = None):
     """Stacked (over layer groups) KV cache for one attention sublayer.
 
     Dense: ``(G, B, slots, K, Dh)`` with ``slots = min(cache_len,
     window)`` (a ring under a sliding window).  ``paging`` (a
     :class:`repro_torch.models.paging.PagedKVConfig`) makes it one shared
     page pool ``(G, num_pages, page_size, K, Dh)`` addressed through a
-    per-slot page table.  bf16 by default, like the JAX cache."""
+    per-slot page table.  ``kv_heads`` replaces ``cfg.num_kv_heads`` for K
+    (a tensor-parallel shard's ``K/tp``).  bf16 by default, like the JAX
+    cache."""
+    K = cfg.num_kv_heads if kv_heads is None else kv_heads
     if paging is not None:
         shape = (n_groups, paging.num_pages, paging.page_size,
-                 cfg.num_kv_heads, cfg.head_dim)
+                 K, cfg.head_dim)
     else:
         slots = min(cache_len, cfg.sliding_window or cache_len)
-        shape = (n_groups, batch, slots, cfg.num_kv_heads, cfg.head_dim)
+        shape = (n_groups, batch, slots, K, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 

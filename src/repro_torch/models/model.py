@@ -197,24 +197,63 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, run: RunConfig):
 # ----------------------------------------------------------------- cache ----
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None,
-               paging=None):
+               paging=None, kv_heads: Optional[int] = None):
     """Decode cache: one entry per sublayer slot, stacked over groups —
     ``{"k", "v"}`` for an attention sublayer, ``{"state", "conv"}`` for
     an SSM one.  ``paging`` makes every attention sublayer a shared page
     pool; it is full-attention only (SSM state is not line-addressable),
-    so callers gate on ``cfg.ssm is None``."""
+    so callers gate on ``cfg.ssm is None``.  ``kv_heads`` sizes the
+    attention leaves' kv-head axis (a tensor-parallel shard's ``K/tp``;
+    default ``cfg.num_kv_heads``)."""
     P = group_period(cfg)
     n_groups = cfg.num_layers // P
     layers = []
     for mixer, _ in layer_schedule(cfg)[:P]:
         if mixer == "attn":
             layers.append(A.init_kv_cache(cfg, batch, cache_len, n_groups,
-                                          device=device, paging=paging))
+                                          device=device, paging=paging,
+                                          kv_heads=kv_heads))
         else:
             assert paging is None, "paged KV cache is attention-only"
             layers.append(SSM.init_ssm_cache(cfg, batch, n_groups,
                                              device=device))
     return {"layers": layers}
+
+
+def cache_logical_axes(cfg: ModelConfig, paging: bool = False):
+    """Logical axes tree matching :func:`init_cache`."""
+    P = group_period(cfg)
+    layers = []
+    for mixer, _ in layer_schedule(cfg)[:P]:
+        if mixer == "attn":
+            # paged pools have no batch dim: pages replace (batch, seq)
+            ax = (("layers", None, "cache_seq", "kv_heads", "head_dim")
+                  if paging else
+                  ("layers", "batch", "cache_seq", "kv_heads", "head_dim"))
+            layers.append({"k": ax, "v": ax})
+        else:
+            layers.append({
+                "state": ("layers", "batch", "ssm_head", None, "ssm_state"),
+                "conv": ("layers", "batch", "conv", None),
+            })
+    return {"layers": layers}
+
+
+def cache_kv_head_dim(cfg: ModelConfig, paging: bool = False) -> int:
+    """Index of the ``kv_heads`` axis in every attention KV-cache leaf.
+
+    Every engine-level cache layout — the paged pool ``(G, pages, ps, K,
+    Dh)``, dense rows ``(G, B, slots, K, Dh)`` and one-request prefill or
+    chunk slices ``(G, B, S, K, Dh)`` — carries ``kv_heads`` at the same
+    position, the axis serving TP splits (``serving.tp.cache_pspec``).
+    Derived from :func:`cache_logical_axes`, so a layout change breaks
+    here loudly instead of splitting the wrong axis."""
+    for leaf in cache_logical_axes(cfg, paging=paging)["layers"]:
+        for axes in leaf.values():
+            if "kv_heads" in axes:
+                return axes.index("kv_heads")
+    raise ValueError(
+        f"no attention KV leaf in the cache for cfg with ssm={cfg.ssm!r}")
 
 
 # --------------------------------------------------------------- prefill ----

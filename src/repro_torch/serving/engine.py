@@ -60,6 +60,16 @@ DECODE span per slot residency and a span per decode or verify call,
 plus the SLO series (``monitoring.trace``); the admission controller
 adds the QUEUED spans.
 
+**Tensor parallelism** (``mesh``, a ``launch.mesh.Mesh`` whose ``model``
+axis has ``tp`` ranks): every rank runs this engine on the same requests
+(``serving.tp.launch``); the plan (``serving.tp.plan_tp``) shards the
+attention heads and the FFN hidden dim, each rank keeps its slice of the
+weights and a KV cache of ``K/tp`` heads, and the model's two reduction
+points all-reduce f32 partials.  Page ids stay one host-side space
+(``pool_view`` has one budget vector entry a shard).  The ranks stay in
+lockstep: the ledger's wall clock is rank 0's, and every decode call
+first compares a hash of its plan across the ranks.
+
 The KV cache is written in place (``index_put_``) where the JAX engine
 threads a new cache through donated programs; every write below happens
 in the order the JAX programs compute them (a chunk reads the pool
@@ -68,6 +78,7 @@ its lines before reading).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Optional, Sequence, Union
@@ -76,7 +87,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core.actshard import tp_reduce_scope
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models.model import (
     cast_for_compute, compute_dtype, decode_n, decode_step, init_cache,
     prefill, prefill_chunk, prefill_suffix, sample_tokens, verify_tokens,
@@ -99,6 +112,9 @@ from repro_torch.serving.admission import (
 from repro_torch.serving.prefix import PrefixCache
 from repro_torch.serving.spec import (
     ModelDraftSource, NgramDraftSource, draft_config, rejection_sample,
+)
+from repro_torch.serving.tp import (
+    LockstepClock, check_lockstep, plan_tp, shard_params,
 )
 
 @dataclass
@@ -176,15 +192,41 @@ class DecodeEngine:
                  index_generated: Optional[bool] = None,
                  mesh=None,
                  device=None):
-        if mesh is not None:
+        # ---- tensor parallelism (mesh=None -> one shard, nothing
+        # changes).  Resolved first: the device, the weights, the cache
+        # and the pool view depend on the plan
+        if mesh is not None and not isinstance(mesh, Mesh):
             raise NotImplementedError(
-                "DecodeEngine(mesh): tensor-parallel serving is not ported "
-                "yet (ROADMAP A4) — the port serves on one card")
+                f"DecodeEngine(mesh={type(mesh).__name__}): the port serves "
+                "tensor-parallel from one process a shard — pass this "
+                "rank's repro_torch.launch.mesh.Mesh (serving.tp.launch "
+                "builds it); one process driving a grid of devices is not "
+                "implemented")
+        self.mesh = mesh
+        self.tp = plan_tp(cfg, mesh)
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"DecodeEngine: device {device} is not "
+                                 f"this rank's mesh device {mesh.device}")
+            device = mesh.device
+            if mesh.rank == 0:
+                for note in self.tp.notices:
+                    print(f"[serve] tp: {note}")
+        #: ranks running this engine side by side, kept in lockstep
+        self._lockstep = mesh is not None and self.tp.tp > 1
+        #: all-reduces issued by the model calls, by reduction point
+        self.tp_counts = {"attn_out": 0, "mlp_out": 0}
         self.device = resolve_device(device)
         self.cfg = cfg
         # the serving entry points run attention through the kernels
         self.run = run or RunConfig(use_kernels=True)
         self.params = cast_for_compute(params, compute_dtype(cfg))
+        if self.tp.active:
+            # this rank's slice of the attention heads and of d_ff; the
+            # embedding, LM head and norms stay whole, so every rank
+            # computes full logits
+            self.params = shard_params(self.params, cfg, self.tp,
+                                       mesh.coords[1])
         self.num_slots = num_slots
         self.cache_len = cache_len
         self.metrics = metrics or MetricsRegistry()
@@ -196,6 +238,15 @@ class DecodeEngine:
         self.tracer = tracer
         if tracer is not None and self.admission.tracer is None:
             self.admission.tracer = tracer
+        #: rank 0's clock, broadcast each step, when the ledger decays on
+        #: a wall clock: the ranks' own clocks could order a fair-share
+        #: near-tie differently
+        self._clock = None
+        tree = self.admission.tree
+        if self._lockstep and tree._clock is not None:
+            self._clock = LockstepClock(tree._clock, mesh.cpu_group,
+                                        src=mesh.model_ranks()[0])
+            tree.enable_wallclock_decay(self._clock)   # one epoch for all
         self.decode_chunk = max(1, int(decode_chunk))
         self.fused = fused
         self.paging = self._resolve_paging(kv_page_size, kv_pages)
@@ -208,9 +259,12 @@ class DecodeEngine:
                          w.get("gres/kv_token",
                                SERVING_TRES_WEIGHTS["gres/kv_token"]))
             self.allocator = PageAllocator(self.paging.num_pages)
-            # per-shard budget view (one shard on one card); the router's
-            # per-replica page gauge reads it
-            self.pool_view = ShardedAllocatorView(self.allocator, shards=1)
+            # one logical page id = one page slice per shard (TP shards
+            # the pool along kv heads); the router's per-replica page
+            # gauge and tp_stats read the per-shard vectors
+            self.pool_view = ShardedAllocatorView(
+                self.allocator,
+                shards=self.tp.tp if self.tp.shard_attn else 1)
             # two-level (directory, leaf) page map: host memory scales
             # with pages actually mapped, not slots * pages_per_seq
             self._ptab = TwoLevelPageTable(num_slots,
@@ -238,8 +292,11 @@ class DecodeEngine:
                 self.admission.radix_probe = (
                     lambda r: bool(self.prefix.match(
                         self._resume_tokens(r))))
-        self.cache = init_cache(cfg, num_slots, cache_len,
-                                device=self.device, paging=self.paging)
+        self.cache = init_cache(
+            cfg, num_slots, cache_len, device=self.device,
+            paging=self.paging,
+            kv_heads=(cfg.num_kv_heads // self.tp.tp if self.tp.shard_attn
+                      else None))
         self.slots: list[Optional[Request]] = [None] * num_slots
         self.pos = np.zeros(num_slots, np.int64)       # next position per slot
         self.last_tok = np.zeros(num_slots, np.int32)
@@ -414,13 +471,53 @@ class DecodeEngine:
     def prefill_buckets(self):
         return self._buckets
 
+    def tp_stats(self) -> dict:
+        """Tensor-parallel shard stats behind ``sdiag``'s TP section: the
+        resolved plan, per-shard page-pool occupancy, and the cross-shard
+        reductions one decode token pays."""
+        plan = self.tp
+        out = {"tp": plan.tp,
+               "active": plan.active,
+               "plan": plan.describe(self.cfg),
+               "devices": [str(d) for d in plan.devices()],
+               "notices": list(plan.notices),
+               "psums_per_token": plan.psums_per_token(self.cfg)}
+        if self.paging is not None:
+            out["kv_pages_in_use"] = [
+                int(n) for n in self.pool_view.in_use_vector()]
+            out["kv_pages_total"] = self.paging.usable_pages
+        return out
+
+    def tp_scope(self):
+        """The reduction scope of this engine's model calls: the ``model``
+        axis's all-reduces where the plan shards, counted into
+        ``tp_counts``; nothing for a one-shard engine."""
+        if not self.tp.active:
+            return contextlib.nullcontext()
+        return tp_reduce_scope(self.mesh.group("model"), self.tp.shard_attn,
+                               self.tp.shard_mlp, counts=self.tp_counts)
+
+    def _check_lockstep(self, what: str, *extra):
+        """Under TP, raise unless every rank is about to make the same
+        call: slot -> request, positions, and ``extra`` (the tokens a lane
+        and the page-table width)."""
+        if self._lockstep:
+            rids = tuple(-1 if r is None else r.rid for r in self.slots)
+            check_lockstep(self.mesh.cpu_group, what,
+                           (rids, tuple(int(p) for p in self.pos), *extra))
+
     def _update_pool_gauges(self):
+        """Per-device ``serve_kv_pages_in_use`` gauges (one series per
+        shard; a one-shard engine reports its device)."""
         if self.paging is None:
             return
-        self.metrics.gauge(
+        g = self.metrics.gauge(
             METRIC_SERVE_KV_PAGES_IN_USE,
-            "KV pages with >= 1 holder, per device").set(
-                int(self.allocator.in_use), device=str(self.device))
+            "KV pages with >= 1 holder, per device")
+        devs = self.tp.devices() or [self.device]
+        for k, n in enumerate(self.pool_view.in_use_vector()):
+            dev = devs[k] if k < len(devs) else f"shard{k}"
+            g.set(int(n), device=str(dev))
 
     def _put(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -700,7 +797,7 @@ class DecodeEngine:
             if self.prefix is not None:
                 self._count_prefix(len(shared))
         with self.metrics.timer("serve_prefill_seconds", "prefill latency"):
-            with torch.no_grad():
+            with torch.no_grad(), self.tp_scope():
                 if shared:
                     logits, cache1, L = self._prefill_suffix(toks, shared)
                 else:
@@ -1114,7 +1211,7 @@ class DecodeEngine:
         pad lines of the bucket are not written at all.  Returns the last
         real token's logits."""
         self.chunk_lengths.add(plan.bucket)
-        with torch.no_grad():
+        with torch.no_grad(), self.tp_scope():
             logits, slices = prefill_chunk(
                 self.params, {"tokens": self._put(plan.tokens)[None]},
                 self.cache, self._put(plan.row)[None], plan.start, self.cfg,
@@ -1303,6 +1400,8 @@ class DecodeEngine:
         slot on the fused path, one on the host loop, a verify round under
         speculation; the budgeted iteration with ``max_batch_tokens``).
         Returns #active + #queued."""
+        if self._clock is not None:
+            self._clock.tick()
         self._admit()
         self._update_pool_gauges()
         if self.max_batch_tokens is not None:
@@ -1385,11 +1484,15 @@ class DecodeEngine:
                 else self.cache_len
                 for i in range(self.num_slots)], np.int32))
             page_table = self._put(self._dispatch_table())
+        self._check_lockstep(
+            "decode", n, None if page_table is None else page_table.shape[1],
+            None if chunk_plan is None else (chunk_plan.part.req.rid,
+                                             chunk_plan.start))
         t0 = time.perf_counter()
         chunk_out = None
         if chunk_plan is not None:
             chunk_out = self._run_chunk(chunk_plan)
-        with torch.no_grad():
+        with torch.no_grad(), self.tp_scope():
             toks, self.cache, token, pos, remaining, done_d = decode_n(
                 self.params, self.cache, self._put(self.last_tok),
                 self._put(self.pos.astype(np.int32)),
@@ -1500,6 +1603,12 @@ class DecodeEngine:
             # columns past the allocation (and every column of frozen /
             # empty / mid-prefill lanes) write the null page
         any_temp = any(self.slots[i].temperature > 0 for i in active)
+        table = self._dispatch_table()
+        self._check_lockstep(
+            "verify", tuple(tuple(int(t) for t in drafts[i]) for i in active),
+            table.shape[1],
+            None if chunk_plan is None else (chunk_plan.part.req.rid,
+                                             chunk_plan.start))
         tr = self.tracer
         csp = tr.begin("SPECULATE", cat="engine",
                        track=("serving:engine", "dispatch"),
@@ -1510,11 +1619,11 @@ class DecodeEngine:
         if chunk_plan is not None:
             # the chunk first: it reads the pool before verify writes
             chunk_out = self._run_chunk(chunk_plan)
-        with torch.no_grad():
+        with torch.no_grad(), self.tp_scope():
             logits, self.cache = verify_tokens(
                 self.params, self.cache, self._put(tokens), self._put(pos0),
-                self._put(pages), self._put(offs),
-                self._put(self._dispatch_table()), self.cfg, self.run)
+                self._put(pages), self._put(offs), self._put(table),
+                self.cfg, self.run)
             # ONE host sync per round; the logits come over only under
             # temperature (greedy needs just the argmax)
             greedy = torch.argmax(logits, dim=-1).cpu().numpy()
@@ -1618,13 +1727,16 @@ class DecodeEngine:
     def _step_host(self, active: list):
         """The per-token host loop (fused=False): one ``decode_step``, one
         host sample, per-token ledger charges."""
+        table = (self._dispatch_table() if self.paging is not None
+                 else None)
+        self._check_lockstep("decode", 1,
+                             None if table is None else table.shape[1])
         t0 = time.perf_counter()
-        with torch.no_grad():
+        with torch.no_grad(), self.tp_scope():
             logits, self.cache = decode_step(
                 self.params, self.cache, self._put(self.last_tok[:, None]),
                 self._put(self.pos.astype(np.int32)), self.cfg, self.run,
-                page_table=(self._put(self._dispatch_table())
-                            if self.paging is not None else None))
+                page_table=None if table is None else self._put(table))
             nxt = self._sample(logits[:, 0])
         self.metrics.histogram("serve_decode_seconds",
                                "batched decode-step latency").observe(
