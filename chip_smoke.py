@@ -117,7 +117,26 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
    attention kernels that did not launch on a rank, no prefix hit, or a
    rank's peak memory over its shard (its weights and its KV pool) + one
    KV pool + 1 GiB.
-13. summary — the kernels line, then the device line last.
+13. train parallel — the port's ``Trainer`` on ranks that share the card
+   over gloo (``launch.mesh.launch_ranks``), seed-0 f32 weights, bf16
+   compute, layer recomputation, 4 x 1024 tokens a step, one step a run
+   (a parallel step through gloo takes 10-40 s): full-width stablelm-3b
+   under fsdp_tp ZeRO 3 on 2 x 2 ranks (the JAX CLI's default), tp on
+   1 x 2 and fsdp ZeRO 3 on 2 x 1; full-width mamba2-780m under dp ZeRO
+   1 and 2 on 2 x 1; each config first on one rank in this process.
+   Each rank logs its step time, the collectives' count and share of the
+   step (timed on the host), its launches, and its peak memory against
+   its reckoned shard (f32 params, gradients, AdamW m and v),
+   transients and activations.  Then f32 at 4 layers of stablelm-3b, two
+   steps a run: dp ZeRO 1 and 2, fsdp ZeRO 2 and 3, tp, fsdp_tp ZeRO 3,
+   each against the one-rank run.  Fail on a non-finite loss or a first
+   loss far from ln(vocab), ranks whose losses differ, bf16 losses more
+   than 0.05 (phase 8's constant term) from the one-rank run's, f32
+   losses beyond 1e-5 relative or final parameters beyond 1e-4 of the
+   largest magnitude, a rank's peak above its reckoned bytes + 1 GiB, or
+   an attention (dense) or scan (SSM) launch count other than two a
+   layer a step on a rank.
+14. summary — the kernels line, then the device line last.
 
 Exits non-zero on any failure, and when no card is present.
 """
@@ -1273,7 +1292,7 @@ def train_phase(cfg, args, kernel_ms: float, device="cuda") -> dict:
 
     B, S, micro = args["batch"], args["seq_len"], args["microbatches"]
     run = RunConfig(use_kernels=True, remat="layer", microbatches=micro)
-    trainer = Trainer(cfg, run, InputShape("smoke", S, B, "train"),
+    trainer = Trainer(cfg, run, None, InputShape("smoke", S, B, "train"),
                       OptimizerConfig(), TrainerConfig(steps=1, seed=SEED),
                       device=device)
     trainer.init_state()
@@ -2290,6 +2309,435 @@ def tp_phase(args, device="cuda", reduced=False) -> dict:
                                        "flips": flips}}
 
 
+# ------------------------------------------------------- train parallel ----
+
+#: the train-parallel phase's bf16 runs at full width, the main path:
+#: (label, arch, (data, model), strategy, ZeRO stage)
+TRAIN_PAR_RUNS = (
+    ("stablelm-3b fsdp_tp z3 2x2", "stablelm-3b", (2, 2), "fsdp_tp", 3),
+    ("stablelm-3b tp 1x2", "stablelm-3b", (1, 2), "tp", 3),
+    ("stablelm-3b fsdp z3 2x1", "stablelm-3b", (2, 1), "fsdp", 3),
+    ("mamba2-780m dp z1 2x1", "mamba2-780m", (2, 1), "dp", 1),
+    ("mamba2-780m dp z2 2x1", "mamba2-780m", (2, 1), "dp", 2))
+#: its f32 identity runs at 4 layers of stablelm-3b, each against the
+#: one-rank run: (label, (data, model), strategy, ZeRO stage)
+TRAIN_PAR_F32 = (("dp z1 2x1", (2, 1), "dp", 1),
+                 ("dp z2 2x1", (2, 1), "dp", 2),
+                 ("fsdp z2 2x1", (2, 1), "fsdp", 2),
+                 ("fsdp z3 2x1", (2, 1), "fsdp", 3),
+                 ("tp 1x2", (1, 2), "tp", 3),
+                 ("fsdp_tp z3 2x2", (2, 2), "fsdp_tp", 3))
+#: f32 identity: losses and gradient norms relative, final parameters
+#: against the largest magnitude of the one-rank run's, their update over
+#: the run (final - initial, the whole tree) relative L2; bf16 runs:
+#: losses against the one-rank bf16 run, phase 8's constant term, and
+#: gradient norms relative.  The runs take the default optimizer, whose
+#: first steps move a parameter by a few 1e-6: the update bound, relative
+#: to the update, and the gradient norms see a wrong gradient at any
+#: learning rate.  (At a peak rate of 1e-3 AdamW moves an element whose
+#: first moment cancels by up to ~lr either way on a reduction-order
+#: difference: 6.8e-4 of the largest magnitude over 2 x 2 ranks on an
+#: H100, past ``PAR_PARAM_TOL``, with the update within 2.5e-4 L2.)
+PAR_LOSS_TOL, PAR_PARAM_TOL, PAR_UPDATE_TOL, PAR_BF16_TOL = \
+    1e-5, 1e-4, 1e-3, 0.05
+_COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter")
+
+
+@contextlib.contextmanager
+def timed_collectives(stats: dict, device):
+    """Count and time, on the host, every ``torch.distributed`` collective
+    the training path issues inside the block: the device is synchronised
+    before and after each, so a reading holds the collective alone (gloo
+    copies CUDA tensors through the host and waits for them anyway)."""
+    import torch.distributed as dist
+
+    orig = {name: getattr(dist, name) for name in _COLLECTIVES}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            sync(device)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync(device)
+            stats["s"] += time.perf_counter() - t0
+            stats[name] += 1
+            return out
+        return call
+
+    for name, fn in orig.items():
+        setattr(dist, name, timed(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in orig.items():
+            setattr(dist, name, fn)
+
+
+def _local_numel(shape, spec, mesh_shape) -> int:
+    n = 1
+    for size, e in zip(shape, spec):
+        axes = e if isinstance(e, tuple) else (e,)
+        for a in axes:
+            if a is not None:
+                size //= mesh_shape[a]
+        n *= size
+    return n
+
+
+def reckon_train(cfg, layout, rows: int, S: int) -> dict:
+    """A rank's reckoned bytes: ``shard`` (its f32 parameter shards,
+    their gradients in the parameter layout and, from ZeRO 2, the reduced
+    ones in the optimizer layout, AdamW's m and v; under ZeRO-3 one layer
+    group gathered) and ``act`` (the activations of ``rows`` local rows x
+    ``S``: the recomputed groups' inputs, the whole-vocab logits and
+    their gradients in f32, and one layer's recompute and backward, with
+    the plain attention backward's (rows, heads, S, S) f32 scores and the
+    SSD scan's chunk matrices).  Temporaries have no term: AdamW and the
+    checkpoint's gathers work a slice at a time."""
+    sizes = layout.mesh.shape
+    c = 2 if cfg.dtype == "bfloat16" else 4
+    state = gathered = 0
+    for leaf in layout.leaves:
+        p = _local_numel(leaf.shape, leaf.param, sizes)
+        o = _local_numel(leaf.shape, leaf.opt, sizes)
+        state += 4 * (2 * p + 2 * o)
+        if layout.run.zero_stage >= 2 and leaf.data_dim is None \
+                and layout.n_data > 1:
+            state += 4 * o
+        if leaf.data_dim is not None and leaf.path.startswith("['layers']"):
+            n_model = _local_numel(leaf.shape, tuple(
+                e if e == "model" else None for e in leaf.param), sizes)
+            gathered += 4 * n_model // leaf.shape[0]
+    d, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
+    tp = layout.tp
+    m = layout.n_model if tp is not None else 1
+    act = L * rows * S * d * c + 16 * rows * S * V
+    if cfg.ssm is None:
+        H = cfg.num_heads // (m if tp.attn else 1) if tp else cfg.num_heads
+        F_ = cfg.d_ff // (m if tp.mlp else 1) if tp else cfg.d_ff
+        act += 16 * rows * H * S * S + 4 * (12 * rows * S * d
+                                            + 8 * rows * S * F_)
+    else:
+        ssm = cfg.ssm
+        H, di = ssm.num_heads(d), ssm.d_inner(d)
+        act += 16 * rows * S * H * ssm.chunk + 4 * 30 * rows * S * di
+    return {"shard": state + gathered, "act": act}
+
+
+def par_trainer(cfg, mesh, strategy, zero, S, B, device):
+    from repro_torch.configs import InputShape, RunConfig
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.training import Trainer, TrainerConfig
+
+    run = RunConfig(strategy=strategy, zero_stage=zero, use_kernels=True,
+                    remat="layer")
+    return Trainer(cfg, run, mesh, InputShape("par", S, B, "train"),
+                   OptimizerConfig(), TrainerConfig(steps=1, seed=SEED),
+                   device=device)
+
+
+def update_errors(final, ref, init) -> dict:
+    """The whole final parameters of a run against the one-rank run's
+    (``ref``), both from ``init``, leaf by leaf: ``param_err`` (max
+    |diff|), ``param_scale`` (the one-rank run's largest magnitude),
+    ``update_l2`` (|| (final - init) - (ref - init) || / || ref - init ||
+    over the tree) and ``update_max`` (the largest element of the
+    one-rank run's update)."""
+    err = scale = num = den = umax = 0.0
+    for a, b, i in zip(final, ref, init):
+        err = max(err, max_err(a, b))
+        scale = max(scale, float(b.abs().max()))
+        num += float(torch.sum(torch.square(a.float() - b.float())))
+        du = b.float() - i.float()
+        den += float(torch.sum(torch.square(du)))
+        umax = max(umax, float(du.abs().max()))
+        del du
+    return {"param_err": err, "param_scale": scale,
+            "update_l2": math.sqrt(num / den) if den else float("inf"),
+            "update_max": umax}
+
+
+def par_run(trainer, steps: int, device) -> dict:
+    """Initialise, then take ``steps`` steps with the launch counts, the
+    peak memory and the collectives' count and host time set to 0 just
+    before them.  No warm-up step: a step through gloo takes 5-40 s
+    (``scripts/train_collectives.py``).  A first step also carries the
+    process's one-time costs (8-11 s on an H100 for stablelm-3b), so
+    the collectives' host time is the steadier reading."""
+    from repro_torch.kernels import ops
+
+    trainer.init_state()
+    sync(device)
+    on_card = torch.device(device).type == "cuda"
+    held = torch.cuda.memory_allocated() if on_card else 0
+    trainer.tcfg.steps = steps
+    stats = dict(s=0.0, **{name: 0 for name in _COLLECTIVES})
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    sync(device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with timed_collectives(stats, device):
+        trainer.train(log=lambda *_: None)
+    sync(device)
+    wall = time.perf_counter() - t0
+    kept = trainer.history
+    return {"losses": [h["loss"] for h in trainer.history],
+            "grad_norms": [h["grad_norm"] for h in trainer.history],
+            "step_s": statistics.median(h["sec"] for h in kept),
+            "collective_s": stats["s"] / len(kept),
+            "collectives": {n: stats[n] // len(kept) for n in _COLLECTIVES},
+            "coll_share": stats["s"] / wall,
+            "launches": ops.launch_counts(),
+            "held_gib": held / 2**30,
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                         if on_card else float("nan"))}
+
+
+def _par_cfgs(reduced: bool):
+    from repro_torch.configs import get_config, get_reduced_config
+
+    get = get_reduced_config if reduced else get_config
+    cfgs = {a: get(a) for a in ("stablelm-3b", "mamba2-780m")}
+    f32cfg = dataclasses.replace(
+        cfgs["stablelm-3b"], dtype="float32",
+        num_layers=min(cfgs["stablelm-3b"].num_layers, 4))
+    return cfgs, f32cfg
+
+
+def train_par_rank(mesh, jobs: dict, ref_path: str, S: int, B: int,
+                   steps: dict, reduced: bool) -> dict:
+    """One rank of the train-parallel phase: each of ``jobs["runs"]``
+    (bf16, full width) and ``jobs["f32"]`` (4 layers, f32) through the
+    port's ``Trainer`` on its mesh, ``steps[kind]`` steps each; for each,
+    the rank's losses, step time, collectives, launches and peak memory
+    against its reckoned bytes.  After an f32 run rank 0 holds the whole
+    final parameters against the one-rank run's (``ref_path``)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.tree import leaves
+
+    dev = mesh.device
+    world = mesh.devices.size
+    shapes = [(world, 1), (1, world)] if world == 2 else [(2, 2)]
+    meshes = {s: make_mesh(*s, devices=[dev] * world, backend="gloo")
+              for s in shapes}
+    cfgs, f32cfg = _par_cfgs(reduced)
+    out = {"runs": [], "f32": []}
+    for kind, specs in (("runs", jobs["runs"]), ("f32", jobs["f32"])):
+        for label, arch, shape, strategy, zero in specs:
+            cfg = f32cfg if kind == "f32" else cfgs[arch]
+            m = meshes[shape]
+            t = par_trainer(cfg, m, strategy, zero, S, B, dev)
+            r = par_run(t, steps[kind], dev)
+            rows = t.layout.batch_rows(B)[1]
+            r.update(label=label, reckon=reckon_train(cfg, t.layout, rows,
+                                                      S))
+            if kind == "f32":
+                whole = leaves(t.layout.gather_tree(t.params))
+                if mesh.rank == 0:
+                    ref = torch.load(ref_path, map_location=dev)
+                    init = leaves(init_params(cfg, SEED, dev))
+                    r.update(update_errors(whole, ref, init))
+                    del ref, init
+                del whole
+            out[kind].append(r)
+            del t
+            gc.collect()
+            empty_cache(dev)
+    return out
+
+
+def one_rank_train(cfg, S, B, steps, device, strategy="fsdp_tp") -> tuple:
+    """The one-rank run the parallel runs are held to: its result and its
+    trainer."""
+    from repro_torch.launch.mesh import single_device_mesh
+
+    t = par_trainer(cfg, single_device_mesh(device), strategy, 3, S, B,
+                    device)
+    return par_run(t, steps, device), t
+
+
+def train_parallel_phase(args, device="cuda", reduced=False) -> dict:
+    """Training parallelism through the port's ``Trainer`` on ranks that
+    share ``device`` over gloo (``launch.mesh.launch_ranks``; NCCL takes
+    one rank per card): full-width stablelm-3b under fsdp_tp ZeRO 3 on
+    2 x 2 ranks, tp on 1 x 2 and fsdp ZeRO 3 on 2 x 1, full-width
+    mamba2-780m under dp ZeRO 1 and 2 on 2 x 1 (``reduced``: the reduced
+    configs, for a rehearsal on the CPU), each ``args["steps"]`` steps of
+    ``args["batch"]`` x ``args["seq_len"]`` tokens; then the f32 identity
+    runs at 4 layers, ``args["f32_steps"]`` steps each.  One-rank runs in this
+    process first: each bf16 config and the f32 one.  Gates: finite
+    losses, the first within 1.5 of ln(vocab); the ranks' losses and
+    gradient norms equal; bf16 losses within ``PAR_BF16_TOL`` of the
+    one-rank run's and gradient norms within ``PAR_BF16_TOL`` relative;
+    f32 losses and gradient norms within ``PAR_LOSS_TOL`` relative, final
+    parameters within ``PAR_PARAM_TOL`` of the largest magnitude and
+    their update within ``PAR_UPDATE_TOL`` relative L2 of the one-rank
+    run's; on the card a rank's peak memory within its reckoned shard +
+    activations + 1 GiB, and the attention (dense) or scan (SSM) kernel
+    launched twice a layer a step (forward and recomputation) on every
+    rank.  Returns the
+    bf16 runs (their launches, summed over the ranks, are main-path
+    launches) and the identity check."""
+    import tempfile
+
+    from repro_torch.launch.mesh import launch_ranks
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    if on_card and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    S, B = args["seq_len"], args["batch"]
+    steps = {"runs": args["steps"], "f32": args["f32_steps"]}
+    cfgs, f32cfg = _par_cfgs(reduced)
+    gc.collect()
+    empty_cache(device)
+    t_phase = time.perf_counter()
+    refs = {}
+    for arch, cfg in cfgs.items():
+        refs[arch], t = one_rank_train(cfg, S, B, steps["runs"], device)
+        r = refs[arch]
+        log(f"  one rank, {arch}: losses "
+            + ", ".join(f"{x:.4f}" for x in r["losses"])
+            + "; gradient norms "
+            + ", ".join(f"{x:.5f}" for x in r["grad_norms"])
+            + f"; {r['step_s']:.3f} s/step, {B * S / r['step_s']:,.0f} "
+            f"tok/s; state {r['held_gib']:.2f} GiB, peak "
+            f"{r['peak_gib']:.2f} GiB")
+        del t
+        gc.collect()
+        empty_cache(device)
+    ref32, t = one_rank_train(f32cfg, S, B, steps["f32"], device)
+    tmp = tempfile.mkdtemp(prefix="repro-train-par-")
+    ref_path = str(Path(tmp) / "f32-params.pt")
+    from repro_torch.tree import leaves
+    torch.save([p.cpu() for p in leaves(t.params)], ref_path)
+    del t
+    gc.collect()
+    empty_cache(device)
+    log(f"  one rank, f32 {f32cfg.num_layers} layers: losses "
+        + ", ".join(f"{x:.6f}" for x in ref32["losses"])
+        + "; gradient norms "
+        + ", ".join(f"{x:.6f}" for x in ref32["grad_norms"]))
+    threads = None if on_card else 1
+    try:
+        t0 = time.perf_counter()
+        four = launch_ranks(train_par_rank, 2, 2, devices=[device] * 4,
+                            backend="gloo", threads=threads, args=(
+                                {"runs": TRAIN_PAR_RUNS[:1],
+                                 "f32": [("fsdp_tp z3 2x2", "stablelm-3b",
+                                          *TRAIN_PAR_F32[-1][1:])]},
+                                ref_path, S, B, steps, reduced))
+        t4 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        two = launch_ranks(train_par_rank, 2, 1, devices=[device] * 2,
+                           backend="gloo", threads=threads, args=(
+                               {"runs": TRAIN_PAR_RUNS[1:],
+                                "f32": [(lbl, "stablelm-3b", *rest)
+                                        for lbl, *rest in
+                                        TRAIN_PAR_F32[:-1]]},
+                               ref_path, S, B, steps, reduced))
+        t2 = time.perf_counter() - t0
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    runs = []
+    for ranks in (four, two):
+        for i, spec in enumerate(TRAIN_PAR_RUNS[:1] if ranks is four
+                                 else TRAIN_PAR_RUNS[1:]):
+            label, arch = spec[0], spec[1]
+            cfg = cfgs[arch]
+            per = [rk["runs"][i] for rk in ranks]
+            ref = refs[arch]
+            log(f"  {label}: losses "
+                + ", ".join(f"{x:.4f}" for x in per[0]["losses"])
+                + " (one rank: " + ", ".join(
+                    f"{x:.4f}" for x in ref["losses"]) + "); gradient "
+                "norms " + ", ".join(f"{x:.5f}" for x in per[0]["grad_norms"])
+                + " (one rank: " + ", ".join(
+                    f"{x:.5f}" for x in ref["grad_norms"]) + ")")
+            for k, r in enumerate(per):
+                rk = r["reckon"]
+                bound = (rk["shard"] + rk["act"]) / 2**30
+                log(f"    rank {k}: {r['step_s']:.3f} s/step, collectives "
+                    f"{r['collective_s']:.3f} s/step ({r['coll_share']:.1%} "
+                    f"of the steps; {r['collectives']} a step); peak "
+                    f"{r['peak_gib']:.2f} GiB against reckoned shard "
+                    f"{rk['shard'] / 2**30:.2f} + activations "
+                    f"{rk['act'] / 2**30:.2f} = {bound:.2f} GiB (state "
+                    f"held after init {r['held_gib']:.2f} GiB); launches "
+                    f"{r['launches']}")
+                if on_card and r["peak_gib"] > bound + 1:
+                    raise AssertionError(
+                        f"train parallel {label}: rank {k} peaked at "
+                        f"{r['peak_gib']:.2f} GiB, over its reckoned "
+                        f"{bound:.2f} GiB + 1 GiB")
+                if r["losses"] != per[0]["losses"] or \
+                        r["grad_norms"] != per[0]["grad_norms"]:
+                    raise AssertionError(f"train parallel {label}: the "
+                                         "ranks' losses or gradient norms "
+                                         "differ")
+                want = steps["runs"] * 2 * cfg.num_layers
+                name = "ssd_scan" if cfg.ssm is not None \
+                    else "flash_attention"
+                if on_card and r["launches"][name] != want:
+                    raise AssertionError(
+                        f"train parallel {label}: {name} launched "
+                        f"{r['launches'][name]} times on rank {k}, not "
+                        f"{want}")
+            ls = per[0]["losses"]
+            if not all(math.isfinite(x) for x in ls) or abs(
+                    ls[0] - math.log(cfg.vocab_size)) > 1.5:
+                raise AssertionError(f"train parallel {label}: losses {ls}")
+            gap = max(abs(a - b) for a, b in zip(ls, ref["losses"]))
+            ggap = max(abs(a - b) / abs(b) for a, b in
+                       zip(per[0]["grad_norms"], ref["grad_norms"]))
+            log(f"    largest loss gap to the one-rank run {gap:.5f} "
+                f"(tol {PAR_BF16_TOL}); largest relative gradient-norm gap "
+                f"{ggap:.2e} (tol {PAR_BF16_TOL})")
+            if not gap <= PAR_BF16_TOL or not ggap <= PAR_BF16_TOL:
+                raise AssertionError(
+                    f"train parallel {label}: losses {ls} and gradient "
+                    f"norms {per[0]['grad_norms']} against one rank's "
+                    f"{ref['losses']} and {ref['grad_norms']}")
+            runs.append({"label": label, "step_s": per[0]["step_s"],
+                         "one_rank_step_s": ref["step_s"],
+                         "coll_share": per[0]["coll_share"],
+                         "peak_gib": [r["peak_gib"] for r in per],
+                         "launches": {n: sum(r["launches"][n] for r in per)
+                                      for n in per[0]["launches"]}})
+    ident = []
+    for ranks in (four, two):
+        for r in (rk["f32"] for rk in ranks[:1]):
+            for x in r:
+                rel = max(abs(a - b) / abs(b) for a, b in
+                          zip(x["losses"], ref32["losses"]))
+                grel = max(abs(a - b) / abs(b) for a, b in
+                           zip(x["grad_norms"], ref32["grad_norms"]))
+                perr = x["param_err"] / x["param_scale"]
+                ident.append((x["label"], rel, grel, perr, x["update_l2"]))
+                log(f"  f32 identity {x['label']}: losses "
+                    + ", ".join(f"{v:.6f}" for v in x["losses"])
+                    + f"; largest relative gap of the losses {rel:.2e}, of "
+                    f"the gradient norms {grel:.2e} (tol "
+                    f"{PAR_LOSS_TOL:g}); final params max|diff| "
+                    f"{x['param_err']:.3e} = {perr:.2e} of the largest "
+                    f"magnitude (tol {PAR_PARAM_TOL:g}); update (largest "
+                    f"element {x['update_max']:.3e}) within "
+                    f"{x['update_l2']:.2e} relative L2 (tol "
+                    f"{PAR_UPDATE_TOL:g}); {x['step_s']:.3f} s/step, "
+                    f"collectives {x['coll_share']:.1%}")
+                if not (rel <= PAR_LOSS_TOL and grel <= PAR_LOSS_TOL
+                        and perr <= PAR_PARAM_TOL
+                        and x["update_l2"] <= PAR_UPDATE_TOL):
+                    raise AssertionError(f"train parallel identity "
+                                         f"{x['label']}: beyond tolerance")
+    log(f"  ranks' launches {t4:.1f} s (2 x 2) and {t2:.1f} s (2 ranks), "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    return {"runs": runs, "identity": ident}
+
+
 # -------------------------------------------------------------- cluster ----
 
 def cluster_phase(tcfg, targs, scfg, sargs, reference, devices=None) -> dict:
@@ -2341,7 +2789,8 @@ def cluster_phase(tcfg, targs, scfg, sargs, reference, devices=None) -> dict:
 
     def train_script(job, alloc):
         device = mesh_for_job(cluster, job, devices=devices).devices.flat[0]
-        trainer = Trainer(tcfg, run, InputShape("cluster", S, B, "train"),
+        trainer = Trainer(tcfg, run, None,
+                          InputShape("cluster", S, B, "train"),
                           OptimizerConfig(), TrainerConfig(
                               steps=2 * (job.requeue_count + 1),
                               ckpt_every=2, ckpt_dir=job.checkpoint_dir,
@@ -2499,12 +2948,32 @@ def cluster_phase(tcfg, targs, scfg, sargs, reference, devices=None) -> dict:
 
 # ----------------------------------------------------------------- main ----
 
+def run_train_parallel(tcfg, cfg, at) -> dict:
+    """Phase 13's header and run on the card."""
+    # one step a bf16 run and two an f32 identity run, no warm-up: gloo
+    # moves CUDA tensors through the host at 0.2-1 GiB/s
+    # (scripts/train_collectives.py), a parallel step takes 10-40 s, and
+    # three a run put the script past half its time limit
+    pargs = dict(seq_len=1024, batch=4, steps=1, f32_steps=2)
+    log(f"[13/14] {at()}: train parallel: full-width {cfg.name} (fsdp_tp "
+        f"ZeRO 3 on 2 x 2 ranks, tp on 1 x 2, fsdp ZeRO 3 on 2 x 1) and "
+        f"{tcfg.name} (dp ZeRO 1 and 2 on 2 x 1), ranks sharing the card "
+        f"over gloo, seed-{SEED} f32 weights, bf16 compute, remat=layer, "
+        f"{pargs['batch']} x {pargs['seq_len']} tokens a step, "
+        f"{pargs['steps']} step(s) a run; then f32 at 4 layers against "
+        f"one rank, {pargs['f32_steps']} steps a run")
+    return train_parallel_phase(pargs)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
                         help="build, then check and time every kernel "
                         "(phases 1-3 without the gradient checks) and "
                         "stop; prints no result line")
+    parser.add_argument("--train-parallel-only", action="store_true",
+                        help="build, then run the train-parallel phase "
+                        "alone and stop; prints no result line")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -2526,12 +2995,12 @@ def main(argv=None) -> int:
         """Seconds since the start, for the phase headers."""
         return f"at {time.perf_counter() - t_start:.1f} s"
 
-    log(f"[1/13] device: {smi} | torch {torch.__version__} cuda "
+    log(f"[1/14] device: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     build.build_all(verbose=True)
-    log(f"[2/13] build: kernels built in {time.perf_counter() - t0:.1f} s "
+    log(f"[2/14] build: kernels built in {time.perf_counter() - t0:.1f} s "
         f"({build.BUILD_ROOT / build.source_hash()})")
 
     cfg = get_config("stablelm-3b")
@@ -2539,7 +3008,12 @@ def main(argv=None) -> int:
     targs = dict(batch=4, microbatches=2, seq_len=2048, steps=4)
     shape = dict(H=cfg.num_heads, K=cfg.num_kv_heads, Dh=cfg.head_dim,
                  slots=4, cache_len=512, prefill_len=128)
-    log(f"[3/13] {at()}: kernels vs plain versions (tolerance bf16 "
+    if opts.train_parallel_only:
+        run_train_parallel(tcfg, cfg, at)
+        log(f"train parallel only: stopped after the phase "
+            f"({time.perf_counter() - t_start:.1f} s)")
+        return 0
+    log(f"[3/14] {at()}: kernels vs plain versions (tolerance bf16 "
         f"{TOL[torch.bfloat16]}, f32 {TOL[torch.float32]}; times: median "
         "of 20 launches, L2 flushed, queued behind a sleep: device time "
         "only):")
@@ -2552,7 +3026,7 @@ def main(argv=None) -> int:
         return 0
     grad_phase()
 
-    log(f"[4/13] {at()}: serve: full-width {cfg.name} ({cfg.num_layers} "
+    log(f"[4/14] {at()}: serve: full-width {cfg.name} ({cfg.num_layers} "
         f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads x "
         f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), random "
         f"weights seed {SEED}, bf16 compute")
@@ -2574,14 +3048,14 @@ def main(argv=None) -> int:
     profiles = {kind: profile_phase(cfg, params, args, kind == "paged")
                 for kind in ("dense", "paged")}
 
-    log(f"[5/13] {at()}: serve modes: full-width {cfg.name}, bf16, "
+    log(f"[5/14] {at()}: serve modes: full-width {cfg.name}, bf16, "
         f"{args['slots']} slots, cache {args['cache_len']}, 16-line pages, "
         f"decode chunk {args['decode_chunk']}, {args['requests']} requests "
         f"of {args['max_new']} tokens a run")
     modes = serve_modes_phase(cfg, params, args)
     plain_paths_phase(cfg, params, args)
 
-    log(f"[6/13] {at()}: consistency at full width (kernels vs plain "
+    log(f"[6/14] {at()}: consistency at full width (kernels vs plain "
         "versions):")
     consistency_phase(cfg, params)
     del params
@@ -2592,7 +3066,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     ssm = tcfg.ssm
-    log(f"[7/13] {at()}: train: full-width {tcfg.name} ({tcfg.num_layers} "
+    log(f"[7/14] {at()}: train: full-width {tcfg.name} ({tcfg.num_layers} "
         f"layers, d_model {tcfg.d_model}, {ssm.num_heads(tcfg.d_model)} SSD "
         f"heads x {ssm.head_dim}, state {ssm.state}, chunk {ssm.chunk}, vocab "
         f"{tcfg.vocab_size}), f32 weights seed {SEED}, bf16 compute, f32 "
@@ -2601,25 +3075,25 @@ def main(argv=None) -> int:
     train = train_phase(tcfg, targs, kernels["ssd_scan"]["ms"])
     torch.cuda.empty_cache()
 
-    log(f"[8/13] {at()}: train consistency at full width (kernels vs plain "
+    log(f"[8/14] {at()}: train consistency at full width (kernels vs plain "
         "vs f32):")
     train_consistency_phase(tcfg, targs)
     torch.cuda.empty_cache()
 
-    log(f"[9/13] {at()}: cluster: a scavenger job trains {tcfg.name} as "
+    log(f"[9/14] {at()}: cluster: a scavenger job trains {tcfg.name} as "
         f"phase 7 does, a high-QOS job serving {cfg.name} preempts it, it "
         "requeues and resumes from its checkpoint")
     clus = cluster_phase(tcfg, targs, cfg, args, train["losses"])
     torch.cuda.empty_cache()
 
-    log(f"[10/13] {at()}: families: SSM serving of mamba2-780m, MoE "
+    log(f"[10/14] {at()}: families: SSM serving of mamba2-780m, MoE "
         f"serving of qwen2-moe-a2.7b, starcoder2-3b; full width, "
         f"{args['slots']} slots, cache {args['cache_len']}, one wave of 4 "
         f"requests of {args['max_new']} tokens a run (two for n-gram "
         f"speculation), decode chunk {args['decode_chunk']}")
     fam = families_phase(dict(args, requests=4))
 
-    log(f"[11/13] {at()}: elastic: full-width {cfg.name} replicas sharing "
+    log(f"[11/14] {at()}: elastic: full-width {cfg.name} replicas sharing "
         f"one card and one bf16 weight set behind the router; "
         f"{args['slots']} slots, cache {args['cache_len']}, decode chunk "
         f"{args['decode_chunk']} a replica; {args['requests']} requests "
@@ -2627,7 +3101,7 @@ def main(argv=None) -> int:
         "system prompts in turn")
     elastic = elastic_phase(args)
 
-    log(f"[12/13] {at()}: tensor parallel: full-width {cfg.name} split "
+    log(f"[12/14] {at()}: tensor parallel: full-width {cfg.name} split "
         f"over two ranks sharing the card (gloo), {cfg.num_heads // 2} of "
         f"{cfg.num_heads} heads and {cfg.d_ff // 2} of d_ff {cfg.d_ff} a "
         f"rank, bf16; {args['slots']} slots, cache {args['cache_len']}, "
@@ -2635,6 +3109,8 @@ def main(argv=None) -> int:
         f"{args['max_new']} tokens a run; dense, then 16-line pages with "
         "the prefix cache; then f32 at 4 layers against tp=1")
     tp = tp_phase(dict(args, requests=4))
+
+    tpar = run_train_parallel(tcfg, cfg, at)
 
     # the main path's serve runs: the f32 4-layer identity runs are a
     # check, not the path, and log their launches on their own line
@@ -2646,6 +3122,7 @@ def main(argv=None) -> int:
     launches["ssd_scan"] = train["launches"]["ssd_scan"]
     for name in launches:
         launches[name] += clus["launches"][name]
+        launches[name] += sum(r["launches"][name] for r in tpar["runs"])
     summary = {name: {"max_abs_err": r["max_abs_err"],
                       "launches": launches[name]}
                for name, r in kernels.items()}
@@ -2657,7 +3134,10 @@ def main(argv=None) -> int:
                               for r in elastic["runs"])
     tp_rates = ", ".join(f"{r['label']} {r['tok_s']:.1f} (tp=1 "
                          f"{r['tp1_tok_s']:.1f})" for r in tp["runs"])
-    log(f"[13/13] summary ({time.perf_counter() - t_start:.1f} s; serve "
+    par_steps = ", ".join(f"{r['label']} {r['step_s']:.2f} s/step "
+                          f"(collectives {r['coll_share']:.0%})"
+                          for r in tpar["runs"])
+    log(f"[14/14] summary ({time.perf_counter() - t_start:.1f} s; serve "
         f"dense {dense['tok_s']:.1f} tok/s, paged {paged['tok_s']:.1f} "
         f"tok/s; modes {mode_rates} tok/s; decode kernel per token step "
         f"dense "
@@ -2667,10 +3147,13 @@ def main(argv=None) -> int:
         f"{train['peak_gib']:.2f} GiB; cluster phase {clus['wall_s']:.1f} "
         f"s, losses bit-identical to phase 7's; families {fam_rates} "
         f"tok/s; elastic {elastic_rates} tok/s wall; {tp_rates} tok/s; "
+        f"train parallel {par_steps}; f32 identity "
+        f"{len(tpar['identity'])}/{len(tpar['identity'])}; "
         "launches summed over the main path: the bf16 serve runs (dense, "
         "paged, the four modes, the families' five runs, the elastic "
         "phase's five, the TP phase's two on both ranks), the kept train "
-        "steps and the cluster phase's two jobs)")
+        "steps, the cluster phase's two jobs and the train-parallel "
+        "phase's five runs on every rank)")
     log("kernels " + json.dumps(summary))
     log(smi)
     line = {"kernels": [dict(name=name, route=r["route"], source=r["source"],

@@ -1,3 +1,3 @@
-from repro_torch.checkpoint.store import latest_step, restore, save
+from repro_torch.checkpoint.store import Streamed, latest_step, restore, save
 
-__all__ = ["latest_step", "restore", "save"]
+__all__ = ["Streamed", "latest_step", "restore", "save"]

@@ -12,6 +12,10 @@ manifest's dtype names are numpy's, so a checkpoint written by either
 package restores in the other.  Writes go to a temp dir and are renamed
 into place, so a crash mid-save never corrupts the LATEST checkpoint.
 ``keep`` bounds disk use.
+
+A leaf too large to hold whole where it is saved (a parameter sharded
+over ranks) goes in as a :class:`Streamed` leaf, written slice by slice
+into its file; ``restore(..., select=)`` reads each leaf's block alone.
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ import os
 import re
 import shutil
 import tempfile
-from typing import Optional
+from dataclasses import dataclass
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -49,6 +54,30 @@ def _to_numpy(leaf):
     return arr, str(arr.dtype)
 
 
+@dataclass(frozen=True)
+class Streamed:
+    """A leaf saved in slices: the whole leaf's ``shape`` and ``dtype``,
+    and ``parts()``, an iterator of ``(index, tensor)`` pairs that tile
+    it (``index`` a tuple of slices into the whole leaf)."""
+    shape: tuple
+    dtype: torch.dtype
+    parts: Callable[[], Iterator[tuple]]
+
+
+def _write_streamed(file: str, leaf: Streamed) -> tuple:
+    """Write ``leaf`` into an .npy file slice by slice; returns (shape,
+    manifest dtype name)."""
+    bf16 = leaf.dtype == torch.bfloat16
+    np_dtype = np.uint16 if bf16 else np.dtype(_NP_NAMES[leaf.dtype])
+    out = np.lib.format.open_memmap(file, mode="w+", dtype=np_dtype,
+                                    shape=tuple(leaf.shape))
+    for index, part in leaf.parts():
+        out[index] = _to_numpy(part.to(leaf.dtype))[0]
+    out.flush()
+    del out
+    return tuple(leaf.shape), "bfloat16" if bf16 else _NP_NAMES[leaf.dtype]
+
+
 def save(directory: str, step: int, tree, data_state: Optional[dict] = None,
          keep: int = 3) -> str:
     """Save a tree checkpoint; returns the checkpoint path."""
@@ -65,10 +94,15 @@ def save(directory: str, step: int, tree, data_state: Optional[dict] = None,
             if nm in names:
                 raise ValueError(f"leaf name collision: {nm}")
             names.append(nm)
-            arr, dtype_name = _to_numpy(leaf)
-            np.save(os.path.join(tmp, nm + ".npy"), arr)
+            file = os.path.join(tmp, nm + ".npy")
+            if isinstance(leaf, Streamed):
+                shape, dtype_name = _write_streamed(file, leaf)
+            else:
+                arr, dtype_name = _to_numpy(leaf)
+                np.save(file, arr)
+                shape = arr.shape
             manifest["leaves"].append(
-                {"name": nm, "shape": list(arr.shape), "dtype": dtype_name})
+                {"name": nm, "shape": list(shape), "dtype": dtype_name})
         manifest["treedef"] = names
         with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
             json.dump(manifest, f, indent=1)
@@ -106,10 +140,13 @@ def latest_step(directory: str) -> Optional[int]:
         return None
 
 
-def restore(directory: str, tree_like, step: Optional[int] = None):
+def restore(directory: str, tree_like, step: Optional[int] = None,
+            select: Optional[Callable] = None):
     """Restore into the structure of ``tree_like``, a tree of tensors whose
-    dtypes and devices the restored leaves take.  Returns (tree,
-    data_state | None)."""
+    dtypes and devices the restored leaves take.  ``select(path, whole)``
+    (optional) returns the block of a whole leaf (a view of its mapped
+    file) to restore, of ``tree_like``'s leaf's shape: only that block is
+    read.  Returns (tree, data_state | None)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -127,12 +164,22 @@ def restore(directory: str, tree_like, step: Optional[int] = None):
                     for leaf in manifest["leaves"]}
     out = []
     for (p, like), nm in zip(flat, names):
-        arr = np.load(os.path.join(path, nm + ".npy"))
+        arr = np.load(os.path.join(path, nm + ".npy"),
+                      mmap_mode=None if select is None else "c")
         if stored_dtype.get(nm) == "bfloat16":   # stored as a uint16 view
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
-        out.append(t.to(device=like.device, dtype=like.dtype))
+        if select is None:
+            out.append(t.to(device=like.device, dtype=like.dtype))
+            continue
+        t = select(p, t)
+        if tuple(t.shape) != tuple(like.shape):
+            raise ValueError(f"checkpoint leaf {p}: block {tuple(t.shape)}"
+                             f", want {tuple(like.shape)}")
+        out.append(torch.empty(like.shape, dtype=like.dtype,
+                               device=like.device).copy_(t))
+        del t, arr
     tree = unflatten(tree_like, out)
     ds_path = os.path.join(path, "data_state.npz")
     data_state = dict(np.load(ds_path, allow_pickle=False)) \

@@ -5,8 +5,11 @@ The port of the JAX package's ``cluster/meshbridge.py``.  Where that module
 builds a ``jax.sharding.Mesh``, this one returns the job's devices as a
 ``(data, model)`` grid of ``torch.device``: a job allocated N hosts x G
 cards gets ``N * G`` devices, folded onto however many exist in the
-process the same way the reference folds its mesh.  The port's ``Trainer``
-takes one device, so a one-card job script passes ``mesh.devices.flat[0]``.
+process the same way the reference folds its mesh.  The grid feeds
+``launch.mesh.launch_ranks`` (:func:`launch_on_mesh`): a job allocated N
+cards starts one rank a card, each the ``Trainer`` of its mesh cell; a
+one-card job script runs its ``Trainer`` in process on
+``mesh.devices.flat[0]``.
 """
 from __future__ import annotations
 
@@ -65,3 +68,18 @@ def mesh_for_job(cluster: Cluster, job: Job, model_parallel: int = 1,
     dev = np.empty(data * model, dtype=object)
     dev[:] = devices[:data * model]
     return DeviceMesh(dev.reshape(data, model))
+
+
+def launch_on_mesh(dmesh: DeviceMesh, fn, *, backend=None, args=(),
+                   threads=None, timeout=None) -> list:
+    """Run ``fn(mesh, *args)`` on one rank per cell of a job's device grid
+    (``launch.mesh.launch_ranks``; ``backend`` default: NCCL when every
+    cell has a card of its own, gloo when cells share one) and return the
+    ranks' results, rank 0's first."""
+    from repro_torch.launch.mesh import default_backend, launch_ranks
+
+    devices = list(dmesh.devices.flat)
+    data, model = dmesh.devices.shape
+    return launch_ranks(fn, data, model, devices=devices,
+                        backend=backend or default_backend(devices),
+                        args=args, threads=threads, timeout=timeout)

@@ -127,26 +127,39 @@ LONG_CONTEXT_WINDOW = 8_192
 
 @dataclass(frozen=True)
 class RunConfig:
-    """Execution knobs of the port (the JAX package's ``RunConfig`` also
-    carries the mesh, ZeRO and sharding knobs, which wait for the
-    multi-device slice).
+    """Parallelism + execution knobs for one (arch x shape x mesh) run:
+    the JAX package's ``RunConfig`` with ``use_kernels`` in place of its
+    ``use_pallas``.
 
-    ``use_kernels`` is the counterpart of the JAX ``use_pallas``: True
-    routes attention and the SSD scan through ``repro_torch.kernels.ops``
-    (the hand-written CUDA kernels on a CUDA tensor, their plain versions
-    on a CPU tensor); False runs the reference paths of
-    ``models.attention`` and ``models.ssm``.  The serving and training
-    entry points set it True.
+    ``use_kernels`` True routes attention and the SSD scan through
+    ``repro_torch.kernels.ops`` (the hand-written CUDA kernels on a CUDA
+    tensor, their plain versions on a CPU tensor); False runs the
+    reference paths of ``models.attention`` and ``models.ssm``.  The
+    serving and training entry points set it True.
 
-    ``microbatches`` splits a training batch for gradient accumulation;
-    ``remat`` ("none" | "layer" | "full") recomputes each layer group's
-    activations in the backward pass (``torch.utils.checkpoint``);
-    ``opt_state_dtype`` is the AdamW moments' dtype, which the trainer
-    CLI passes to ``OptimizerConfig.state_dtype``."""
-    use_kernels: bool = False
-    microbatches: int = 1
-    remat: str = "layer"
+    ``strategy`` and ``zero_stage`` place parameters, gradients and
+    optimizer state on the ``(data, model)`` mesh of ranks
+    (``core.sharding``, ``core.zero``); ``gather_bf16`` and
+    ``grad_reduce_bf16`` move the ZeRO-3 gathers and the gradient
+    reductions in bf16, as in the JAX step.  ``seq_parallel`` computes
+    training attention in one q block (the JAX ``one_block``);
+    ``seq_parallel`` and ``moe_defer_combine`` are layouts of a mesh with
+    more than one ``model`` rank that the port refuses there (ROADMAP
+    A4c).  ``unroll`` is accepted and does nothing: it makes the JAX
+    step's scans straight-line HLO for XLA's cost analysis, and the
+    port's loops are Python loops already."""
+    strategy: str = "fsdp_tp"     # dp | tp | fsdp | fsdp_tp | pp
+    zero_stage: int = 3           # 1 | 2 | 3 (ZeRO partitioning depth)
+    microbatches: int = 1         # gradient-accumulation microbatches
+    remat: str = "layer"          # none | layer | full
     opt_state_dtype: str = "float32"
+    use_kernels: bool = False
+    seq_shard_decode: bool = False  # shard decode KV cache along sequence
+    seq_parallel: bool = False
+    gather_bf16: bool = False
+    moe_defer_combine: bool = False
+    grad_reduce_bf16: bool = False
+    unroll: bool = False
 
 
 ARCH_IDS = [

@@ -1,36 +1,79 @@
 """Activation sharding hooks of the model code — the port of the JAX
-package's ``core/actshard.py``.
+package's ``core/actshard.py``, plus the points where eager SPMD writes
+out the collectives GSPMD would insert.
 
 Model code stays mesh-agnostic: it calls ``constrain(x, "<logical
-name>")`` and ``maybe_psum(x, kind)``, and the caller decides what they
-do.  ``constrain`` is the identity here: its rules place activations on a
-training mesh, which the port does not build yet.
+name>")``, the tensor-parallel points below and ``use_params``, and the
+caller decides what they do; outside every scope each is the identity.
 
-**Tensor-parallel reductions.**  Serving TP runs one process per shard
-(``serving/tp.py``); each holds a slice of the attention heads and of the
-FFN hidden dim, so attention's output projection and the MLP
+**Activation rules.**  :func:`activation_sharding` installs the rules of
+``core.sharding.make_activation_rules`` and :func:`activation_spec` reads
+them.  :func:`constrain` stays a value identity, as JAX's is outside a
+trace: under GSPMD a constraint tells the partitioner where to put a
+value, but here each rank computes only its own part, and every
+activation already lives where the parameter layout puts it (the batch
+rows of the rank's ``data`` index, the heads or FFN columns of its
+``model`` index).  So the train step installs no rules: no model code
+reads a spec, and the rules serve a caller that asks where an
+activation would live.
+
+**Serving tensor-parallel reductions.**  Serving TP runs one process per
+shard (``serving/tp.py``); each holds a slice of the attention heads and
+of the FFN hidden dim, so attention's output projection and the MLP
 down-projection leave a partial sum on every shard.  Both call
 ``maybe_psum(x, kind)``; inside :func:`tp_reduce_scope` that is one
 ``torch.distributed.all_reduce`` over the scope's process group, gated per
-kind (``"attn_out"`` | ``"mlp_out"``) and counted.  Outside any scope
-(training, one-shard serving) it is the identity.
+kind (``"attn_out"`` | ``"mlp_out"``) and counted.  It is forward-only.
+
+**Training tensor parallelism** (Megatron-style, inside
+:func:`tp_train_scope`) needs the conjugate pair of autograd functions:
+:func:`tp_copy` (forward identity, backward all-reduce) at the input of
+a column-parallel product and :func:`tp_reduce` (forward all-reduce,
+backward identity) after a row-parallel one; :func:`tp_gather_last`
+gathers vocab-parallel logits.  :func:`use_params` is the ZeRO-3 point:
+the train step installs a function (``core.zero``) that all-gathers the
+data-sharded parameters where the model uses them.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Optional
+from dataclasses import dataclass
+from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
+
+Rules = Callable[[str, tuple], Optional[tuple]]   # (name, shape) -> spec
+
+_RULES: contextvars.ContextVar[Optional[Rules]] = contextvars.ContextVar(
+    "repro_torch_act_sharding_rules", default=None)
 
 #: (process group, reduce "attn_out"?, reduce "mlp_out"?, counts or None)
 _TP_REDUCE: contextvars.ContextVar[Optional[tuple]] = contextvars.ContextVar(
     "repro_torch_tp_reduce", default=None)
 
 
+@contextlib.contextmanager
+def activation_sharding(rules: Optional[Rules]):
+    """Install activation-sharding rules for model code run inside the
+    block."""
+    tok = _RULES.set(rules)
+    try:
+        yield
+    finally:
+        _RULES.reset(tok)
+
+
+def activation_spec(name: str, shape: tuple) -> Optional[tuple]:
+    """The installed rules' spec for a logical activation, or None (no
+    rules, or no rule for ``name``)."""
+    rules = _RULES.get()
+    return None if rules is None else rules(name, tuple(shape))
+
+
 def constrain(x: torch.Tensor, name: str) -> torch.Tensor:
-    """The identity: the port installs no activation-sharding rules."""
+    """The identity, with or without rules (see the module docstring)."""
     return x
 
 
@@ -79,3 +122,158 @@ def maybe_psum(x: torch.Tensor, kind: str) -> torch.Tensor:
     x = x.contiguous()             # einsum may return a permuted view
     dist.all_reduce(x, group=group)
     return x
+
+
+# -------------------------------------------- training tensor parallelism ----
+
+@dataclass(frozen=True)
+class TrainTP:
+    """What the ``model`` axis shards in one training run, seen from one
+    rank: ``index`` of ``size`` ranks in ``group``.  ``attn``: query heads
+    (and ``kv`` when the kv heads divide too; otherwise each rank slices
+    the kv heads its query heads use from the replicated ``wk``/``wv``);
+    ``mlp``: the FFN hidden dim; ``vocab``: the embedding table's and the
+    LM head's rows."""
+    group: object
+    index: int
+    size: int
+    attn: bool = False
+    kv: bool = False
+    mlp: bool = False
+    vocab: bool = False
+
+
+_TRAIN_TP: contextvars.ContextVar[Optional[TrainTP]] = contextvars.ContextVar(
+    "repro_torch_train_tp", default=None)
+
+
+@contextlib.contextmanager
+def tp_train_scope(plan: Optional[TrainTP]):
+    """Install a training tensor-parallel plan for model code run inside
+    the block (None: no tensor parallelism)."""
+    tok = _TRAIN_TP.set(plan)
+    try:
+        yield
+    finally:
+        _TRAIN_TP.reset(tok)
+
+
+def tp_train() -> Optional[TrainTP]:
+    return _TRAIN_TP.get()
+
+
+def _all_reduce_f32(x: torch.Tensor, group) -> torch.Tensor:
+    """A new tensor: the sum of ``x`` over ``group``, reduced in f32 and
+    returned in ``x``'s dtype."""
+    y = x.to(torch.float32, copy=True).contiguous()
+    dist.all_reduce(y, group=group)
+    return y.to(x.dtype)
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_f32(g, ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_f32(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, index, size):
+        ctx.index, ctx.n = index, x.shape[-1]
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(size)]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(-1, ctx.index * ctx.n, ctx.n), None, None, None
+
+
+def tp_copy(x: torch.Tensor) -> torch.Tensor:
+    """The input of a column-parallel product: the identity forward; the
+    backward sums the input's gradient over the ``model`` ranks, each of
+    which holds the part its columns contribute."""
+    plan = _TRAIN_TP.get()
+    return x if plan is None else _Copy.apply(x, plan.group)
+
+
+def tp_reduce(x: torch.Tensor) -> torch.Tensor:
+    """The output of a row-parallel product: all-reduce the partial sums
+    over the ``model`` ranks (in f32, rounded once to ``x``'s dtype); the
+    backward hands each rank the whole gradient, as it is."""
+    plan = _TRAIN_TP.get()
+    return x if plan is None else _Reduce.apply(x, plan.group)
+
+
+def tp_gather_last(x: torch.Tensor) -> torch.Tensor:
+    """Concatenate the ``model`` ranks' slices of the last dim in rank
+    order (vocab-parallel logits); the backward keeps this rank's slice
+    of the gradient."""
+    plan = _TRAIN_TP.get()
+    if plan is None:
+        return x
+    return _GatherLast.apply(x, plan.group, plan.index, plan.size)
+
+
+# ------------------------------------------------------- ZeRO-3 gathers ----
+
+_PARAM_USE: contextvars.ContextVar[Optional[Callable]] = \
+    contextvars.ContextVar("repro_torch_param_use", default=None)
+
+
+@contextlib.contextmanager
+def param_use_scope(fn: Optional[Callable]):
+    """Install ``fn(tree, which) -> tree``, which :func:`use_params` calls
+    where the model reads its parameters."""
+    tok = _PARAM_USE.set(fn)
+    try:
+        yield
+    finally:
+        _PARAM_USE.reset(tok)
+
+
+def use_params(tree, which: str):
+    """The parameters as the model uses them: ``which`` is ``"root"``
+    (the whole tree, of which the leaves outside ``layers`` are read) or
+    ``"layers"`` (one layer group's list of sublayer trees, taken from
+    the stacked leaves).  The identity outside :func:`param_use_scope`;
+    under ZeRO-3 the installed function all-gathers the data shards."""
+    fn = _PARAM_USE.get()
+    return tree if fn is None else fn(tree, which)
+
+
+def snapshot():
+    """A context manager factory that installs, wherever it is entered,
+    the rules, plans and hooks installed here now.  Recomputation under
+    ``torch.utils.checkpoint`` reruns a body inside the backward pass,
+    which on a CUDA device runs on autograd's own thread, where the
+    caller's context variables are not set."""
+    saved = [(var, var.get()) for var in (_RULES, _TP_REDUCE, _TRAIN_TP,
+                                          _PARAM_USE)]
+
+    @contextlib.contextmanager
+    def scope():
+        toks = [(var, var.set(value)) for var, value in saved]
+        try:
+            yield
+        finally:
+            for var, tok in reversed(toks):
+                var.reset(tok)
+
+    return scope

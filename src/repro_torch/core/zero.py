@@ -1,0 +1,378 @@
+"""ZeRO stage semantics (paper §7.2) in eager SPMD — the port of the JAX
+package's ``core/zero.py``.
+
+Under GSPMD the stages fall out of *where tensors live*; here each rank
+holds its own shard of every leaf and the collectives are written out
+where GSPMD would insert them:
+
+  stage 1 — optimizer state sharded on `data`; params + grads replicated
+            across `data` (modulo TP).  Gradients are all-reduced over
+            `data`, each rank updates its optimizer-layout slice, and the
+            new params are all-gathered back.
+  stage 2 — + gradients reduce-scattered into the optimizer layout.
+  stage 3 — + parameters sharded (FSDP, strategies ``fsdp`` and
+            ``fsdp_tp``): weights are all-gathered at use, per layer
+            group, inside the recomputed body
+            (:meth:`Layout.param_use`); the gather's backward
+            reduce-scatters their gradients.
+
+``core.sharding`` gives the specs (``param_shardings``, ``opt_shardings``);
+:class:`Layout` reads them for one rank of a ``launch.mesh.Mesh`` and
+slices, gathers and reduces by them.  On a one-cell mesh every operation
+here is the identity.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core import sharding as shd
+from repro_torch.core.actshard import TrainTP
+from repro_torch.core.parallelism import get_strategy
+from repro_torch.tree import leaves_with_path, unflatten
+
+
+#: elements of a whole leaf that one gather of :meth:`Layout.gather_slices`
+#: moves at most (64 MiB in f32)
+SLICE_ELEMS = 1 << 24
+
+
+def grad_shardings(cfg: ModelConfig, mesh, run: RunConfig):
+    """Spec tree of the gradients: the optimizer layout from ZeRO stage 2,
+    the parameter layout below it."""
+    if run.zero_stage >= 2:
+        return shd.opt_shardings(cfg, mesh, run)
+    return shd.param_shardings(cfg, mesh, run)
+
+
+def _dim(spec: tuple, axis: str) -> Optional[int]:
+    """The dimension a spec shards on ``axis`` (None: replicated)."""
+    for i, e in enumerate(spec):
+        if e == axis or (isinstance(e, tuple) and axis in e):
+            return i
+    return None
+
+
+@dataclass(frozen=True)
+class Leaf:
+    """One parameter leaf's placement on the mesh."""
+    path: str
+    shape: tuple                 # the whole leaf
+    param: tuple                 # spec in the parameter layout
+    opt: tuple                   # spec in the optimizer (and ZeRO-2 grad)
+    partial_model: bool = False  # its gradient is partial over `model`
+
+    @property
+    def data_dim(self) -> Optional[int]:
+        """The dim ZeRO-3 shards the parameter itself on."""
+        return _dim(self.param, "data")
+
+    @property
+    def opt_data_dim(self) -> Optional[int]:
+        """The dim the optimizer slice takes of a data-replicated param."""
+        return None if self.data_dim is not None else _dim(self.opt, "data")
+
+
+class Layout:
+    """Where every leaf of a training run lives, seen from one rank.
+
+    ``mesh`` is a ``launch.mesh.Mesh`` (its ``coords`` and groups); the
+    port's mesh has no ``pod`` axis.  Leaves are listed in
+    ``repro_torch.tree.leaves`` order."""
+
+    def __init__(self, cfg: ModelConfig, mesh, run: RunConfig):
+        if "pod" in mesh.axis_names:
+            raise ValueError("the port's training mesh is (data, model)")
+        self.cfg, self.mesh, self.run = cfg, mesh, run
+        self.strategy = get_strategy(run.strategy)
+        self.n_data = mesh.shape["data"]
+        self.n_model = mesh.shape["model"]
+        self.d, self.m = mesh.coords
+        p_specs = shd.param_shardings(cfg, mesh, run)
+        o_specs = shd.opt_shardings(cfg, mesh, run)
+        from repro_torch.models.spec import model_spec
+        shapes = [ps.shape for _, ps in _ps_leaves(model_spec(cfg))]
+        pl, ol = shd.spec_leaves(p_specs), shd.spec_leaves(o_specs)
+        self.tp = self._tp_plan(p_specs)
+        partial = self._partial_leaves(p_specs)
+        self.leaves = [Leaf(path, shape, p, o, path in partial)
+                       for (path, p), (_, o), shape in zip(pl, ol, shapes)]
+
+    # ------------------------------------------------------------ plans ----
+    def _tp_plan(self, p_specs) -> Optional[TrainTP]:
+        """What the model axis shards, read from the parameter specs of
+        the first sublayer of each kind."""
+        if self.n_model <= 1 or not self.strategy.tp:
+            return None
+        attn = kv = mlp = False
+        for sub in p_specs["layers"]:
+            if "attn" in sub:
+                attn = "model" in sub["attn"]["wq"]
+                kv = "model" in sub["attn"]["wk"]
+            if "mlp" in sub:
+                mlp = "model" in sub["mlp"]["w1"]
+        vocab = "model" in p_specs["embed"]["tok"]
+        return TrainTP(self.mesh.group("model"), self.m, self.n_model,
+                       attn=attn, kv=kv, mlp=mlp, vocab=vocab)
+
+    def _partial_leaves(self, p_specs) -> set:
+        """Leaves whose gradient each model rank holds only in part: the
+        replicated kv projections of head-sharded attention (each rank
+        reads the kv heads of its own query heads).  A norm scale, by
+        contrast, gets its whole gradient on every rank."""
+        if self.tp is None or not self.tp.attn or self.tp.kv:
+            return set()
+        out = set()
+        for i, sub in enumerate(p_specs["layers"]):
+            for name in ("wk", "wv", "bk", "bv"):
+                if name in sub.get("attn", {}):
+                    out.add(f"['layers'][{i}]['attn'][{name!r}]")
+        return out
+
+    @property
+    def world(self) -> int:
+        return self.n_data * self.n_model
+
+    def batch_rows(self, rows: int) -> tuple[int, int]:
+        """(start, count) of this rank's rows of a ``rows``-row batch
+        (``sharding.batch_partition``): a ``data`` block, or all of them
+        when the batch does not divide."""
+        axes = shd.batch_partition(self.mesh, rows, self.strategy)
+        if not axes or self.n_data == 1:
+            return 0, rows
+        n = rows // self.n_data
+        return self.d * n, n
+
+    # ------------------------------------------------------------ slices ----
+    def _index(self, axis: str) -> tuple[int, int]:
+        return ((self.d, self.n_data) if axis == "data"
+                else (self.m, self.n_model))
+
+    def local(self, full: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """This rank's block of a whole leaf under ``spec`` (a view)."""
+        out = full
+        for axis in ("model", "data"):
+            dim = _dim(spec, axis)
+            if dim is not None:
+                i, n = self._index(axis)
+                size = full.shape[dim] // n
+                out = out.narrow(dim, i * size, size)
+        return out
+
+    def gather(self, local: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """The whole leaf from every rank's block (collective)."""
+        out = local
+        for axis in ("data", "model"):
+            dim = _dim(spec, axis)
+            if dim is not None:
+                out = _all_gather_dim(out, dim, self.mesh.group(axis),
+                                      self._index(axis)[1])
+        return out
+
+    def shard(self, tree, specs_of: str = "param"):
+        """Contiguous copies of this rank's blocks of a tree of whole
+        leaves, in the parameter (``"param"``) or optimizer layout."""
+        out = []
+        for leaf, (_, t) in zip(self.leaves, leaves_with_path(tree)):
+            spec = leaf.param if specs_of == "param" else leaf.opt
+            out.append(self.local(t, spec).clone())
+        return unflatten(tree, out)
+
+    def gather_tree(self, tree, specs_of: str = "param"):
+        """The whole leaves of a tree of this rank's blocks (collective)."""
+        out = []
+        for leaf, (_, t) in zip(self.leaves, leaves_with_path(tree)):
+            out.append(self.gather(t, leaf.param if specs_of == "param"
+                                   else leaf.opt))
+        return unflatten(tree, out)
+
+    def gather_slices(self, local: torch.Tensor, spec: tuple):
+        """The whole leaf of this rank's block under ``spec``, a slice at
+        a time (collective, a gather a slice): yields ``(index, part)``,
+        ``part`` the whole leaf's block at ``index`` (a tuple of slices),
+        cut along its first unsharded dimension so that each holds about
+        ``SLICE_ELEMS`` elements at most; every rank gets every part."""
+        free = [d for d in range(local.ndim)
+                if local.shape[d] > 1 and not any(
+                    _dim(spec, axis) == d for axis in ("data", "model"))]
+        if not free:
+            yield (), self.gather(local, spec)
+            return
+        dim = free[0]
+        rows = local.shape[dim]
+        whole = local.numel() * self.world // max(
+            1, self._copies(spec))
+        step = max(1, SLICE_ELEMS // max(1, whole // rows))
+        for r in range(0, rows, step):
+            n = min(step, rows - r)
+            index = (slice(None),) * dim + (slice(r, r + n),)
+            yield index, self.gather(local.narrow(dim, r, n), spec)
+
+    def _copies(self, spec: tuple) -> int:
+        """How many ranks hold each block of a leaf under ``spec``."""
+        out = 1
+        for axis, n in (("data", self.n_data), ("model", self.n_model)):
+            if _dim(spec, axis) is None:
+                out *= n
+        return out
+
+    def opt_view(self, leaf: Leaf, t: torch.Tensor) -> torch.Tensor:
+        """The optimizer-layout slice of a parameter-layout tensor (a view
+        of it; the tensor itself where the two layouts agree)."""
+        dim = leaf.opt_data_dim
+        if dim is None or self.n_data == 1:
+            return t
+        n = t.shape[dim] // self.n_data
+        return t.narrow(dim, self.d * n, n)
+
+    def owned(self, leaf: Leaf) -> bool:
+        """Whether this rank counts ``leaf``'s optimizer slice in a sum
+        over the world: once per distinct slice."""
+        o = leaf.opt
+        return ((_dim(o, "data") is not None or self.d == 0)
+                and (_dim(o, "model") is not None or self.m == 0))
+
+    # --------------------------------------------------------- gradients ----
+    def reduce_grads(self, grads: list, dtype=None) -> list:
+        """The gradient side of the JAX ``constrain_grads``: one backward
+        pass's gradients (parameter layout; a ZeRO-3 leaf's already summed
+        over ``data`` by its gather) -> the ZeRO gradient layout
+        (``grad_shardings``), summed over the batch's ranks.
+        ``dtype`` (bf16 under ``grad_reduce_bf16``) is cast to before any
+        reduction."""
+        out = []
+        split = self.n_data > 1
+        for leaf, g in zip(self.leaves, grads):
+            if dtype is not None:
+                g = g.to(dtype)
+            if leaf.partial_model:
+                g = g.contiguous()
+                dist.all_reduce(g, group=self.mesh.group("model"))
+            if split and leaf.data_dim is None:
+                dim = leaf.opt_data_dim
+                if self.run.zero_stage >= 2 and dim is not None:
+                    g = _reduce_scatter_dim(g, dim, self.mesh.group("data"),
+                                            self.n_data)
+                else:
+                    g = g.contiguous()
+                    dist.all_reduce(g, group=self.mesh.group("data"))
+            out.append(g)
+        return out
+
+    def to_opt_layout(self, grads: list) -> list:
+        """Gradients in the ZeRO gradient layout -> the optimizer layout
+        (ZeRO 1 keeps whole gradients: take this rank's slice)."""
+        if self.run.zero_stage >= 2:
+            return grads
+        return [self.opt_view(leaf, g) for leaf, g in zip(self.leaves, grads)]
+
+    def regather_params(self, params: list) -> None:
+        """After an update of each rank's optimizer slice, all-gather the
+        slices of data-replicated parameters back into place."""
+        if self.n_data == 1:
+            return
+        group = self.mesh.group("data")
+        for leaf, p in zip(self.leaves, params):
+            dim = leaf.opt_data_dim
+            if dim is None:
+                continue
+            n = p.shape[dim] // self.n_data
+            parts = [torch.empty_like(p.narrow(dim, 0, n), memory_format=
+                                      torch.contiguous_format)
+                     for _ in range(self.n_data)]
+            dist.all_gather(parts, p.narrow(dim, self.d * n, n).contiguous(),
+                            group=group)
+            for i, part in enumerate(parts):
+                if i != self.d:
+                    p.narrow(dim, i * n, n).copy_(part)
+
+    # ------------------------------------------------------------ ZeRO-3 ----
+    def param_use(self, grad_dtype=None):
+        """The function ``core.actshard.use_params`` calls: all-gather the
+        data-sharded leaves where the model reads them (casting f32 leaves
+        to bf16 first under ``run.gather_bf16``), or None when the run
+        gathers nothing and casts nothing.  ``grad_dtype`` is what the
+        gathers' backward reduce-scatters in (None: the gradient's
+        own)."""
+        bf16 = self.run.gather_bf16
+        dims = {leaf.path: leaf.data_dim for leaf in self.leaves}
+        if not bf16 and all(d is None for d in dims.values()):
+            return None
+        group, n = self.mesh.group("data"), self.n_data
+
+        def use(t, dim):
+            if bf16 and t.dtype == torch.float32:
+                t = t.to(torch.bfloat16)
+            if dim is None or n == 1:
+                return t
+            return _GatherData.apply(t, dim, group, n, self.d, grad_dtype)
+
+        def walk(tree, path, drop):
+            if isinstance(tree, dict):
+                return {k: walk(v, f"{path}[{k!r}]", drop)
+                        for k, v in tree.items()}
+            if isinstance(tree, list):
+                return [walk(v, f"{path}[{i}]", drop)
+                        for i, v in enumerate(tree)]
+            dim = dims[path]
+            return use(tree, None if dim is None else dim - drop)
+
+        def fn(tree, which):
+            if which == "layers":      # one group's sublayers, layers dim off
+                return [walk(sub, f"['layers'][{i}]", 1)
+                        for i, sub in enumerate(tree)]
+            return {k: (v if k == "layers" else walk(v, f"[{k!r}]", 0))
+                    for k, v in tree.items()}
+
+        return fn
+
+
+def _ps_leaves(tree, path: str = ""):
+    """``[(keystr path, ParamSpec)]`` of a parameter spec tree."""
+    from repro_torch.models.spec import ParamSpec
+    if isinstance(tree, ParamSpec):
+        return [(path, tree)]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _ps_leaves(tree[k], f"{path}[{k!r}]")]
+    return [x for i, v in enumerate(tree)
+            for x in _ps_leaves(v, f"{path}[{i}]")]
+
+
+def _all_gather_dim(t: torch.Tensor, dim: int, group, n: int):
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _reduce_scatter_dim(t: torch.Tensor, dim: int, group, n: int):
+    chunks = [c.contiguous() for c in t.chunk(n, dim=dim)]
+    out = torch.empty_like(chunks[0])
+    dist.reduce_scatter(out, chunks, group=group)
+    return out
+
+
+class _GatherData(torch.autograd.Function):
+    """ZeRO-3 at use: all-gather a data-sharded leaf along ``dim`` in the
+    forward; reduce-scatter its gradient (in ``grad_dtype`` when given)
+    in the backward, which sums the ranks' batch rows and hands each rank
+    the gradient of its own shard."""
+
+    @staticmethod
+    def forward(ctx, shard, dim, group, n, index, grad_dtype):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        ctx.grad_dtype, ctx.dtype = grad_dtype, shard.dtype
+        return _all_gather_dim(shard, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad_dtype is not None:
+            g = g.to(ctx.grad_dtype)
+        out = _reduce_scatter_dim(g, ctx.dim, ctx.group, ctx.n)
+        return out.to(ctx.dtype), None, None, None, None, None
+

@@ -1,23 +1,31 @@
 """Device meshes of the port — the counterpart of the JAX package's
-``launch/mesh.py`` for one-process-per-shard PyTorch.
+``launch/mesh.py`` for one-process-per-cell PyTorch.
 
 A JAX mesh is one controller's grid of devices.  The port runs one
 process per grid cell (SPMD, ``torch.distributed``), so its mesh is the
 ``(data, model)`` grid of ``torch.device`` (as
 ``cluster/meshbridge.py::DeviceMesh``) plus what the calling process needs
 to take part: its coordinates in the grid, the process group of its
-``model`` row, and a gloo group over that row for host-side collectives
-on CPU tensors (barriers, the serving lockstep checks).  Groups along
-``data`` wait for the training side of the port.
+``model`` row and of its ``data`` column, and a gloo group over the row
+for host-side collectives on CPU tensors (barriers, the serving lockstep
+checks).  :func:`launch_ranks` starts the processes.
 
 Nothing is chosen behind the caller's back: a mesh of more than one cell
 needs ``torch.distributed`` initialised over exactly its cells, the
 devices named one per cell, and the backend named.  NCCL takes one rank
 per card; ranks that share a card use gloo.  The pod-shaped production
-meshes of the JAX package wait for the training side of the port.
+meshes of the JAX package (``make_production_mesh``) come with its
+dry run (ROADMAP A5).
 """
 from __future__ import annotations
 
+import multiprocessing as mp
+import os
+import queue
+import shutil
+import tempfile
+import time
+import traceback
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -56,7 +64,7 @@ class Mesh:
 
     def group(self, axis: str):
         """The process group of ``axis`` through this cell (None where
-        the mesh has none: an axis of size 1, or ``data``)."""
+        the mesh has none: an axis of size 1)."""
         return self.groups.get(axis)
 
     def model_ranks(self) -> list:
@@ -101,8 +109,9 @@ def make_mesh(data: int = 1, model: int = 1, *, devices=None,
     grid = grid.reshape(data, model)
     coords = divmod(rank, model)
     groups, cpu_group = {}, None
-    # new_group is collective: every rank creates every row's groups, in
-    # order.  Only the model axis gets one: serving TP reduces over it
+    # new_group is collective: every rank creates every group, in the same
+    # order.  The model rows first (serving TP reduces over them), then
+    # the data columns (training's gradient reductions and ZeRO gathers)
     for d in range(data if model > 1 else 0):
         ranks = [d * model + j for j in range(model)]
         g = dist.new_group(ranks, backend=backend)
@@ -110,9 +119,110 @@ def make_mesh(data: int = 1, model: int = 1, *, devices=None,
                                                         backend="gloo")
         if rank in ranks:
             groups["model"], cpu_group = g, c
+    for j in range(model if data > 1 else 0):
+        ranks = [d * model + j for d in range(data)]
+        g = dist.new_group(ranks, backend=backend)
+        if rank in ranks:
+            groups["data"] = g
     return Mesh(devices=grid, coords=coords, groups=groups,
                 cpu_group=cpu_group, backend=backend)
 
 
 def single_device_mesh(device=None) -> Mesh:
     return make_mesh(1, 1, devices=None if device is None else [device])
+
+
+def default_backend(devices) -> str:
+    """``nccl`` when every cell has a card of its own, ``gloo`` when cells
+    share a device (NCCL refuses two ranks on one card) or run on the
+    CPU."""
+    devices = [torch.device(d) for d in devices]
+    if all(d.type == "cuda" for d in devices) and \
+            len(set(map(str, devices))) == len(devices):
+        return "nccl"
+    return "gloo"
+
+
+def _rank_main(fn, rank, data, model, devices, backend, init, args,
+               threads, out):
+    """One rank: join the group, build the mesh, run ``fn(mesh, *args)``
+    and send back ``(rank, ok, result or traceback)``."""
+    try:
+        if threads:
+            torch.set_num_threads(threads)
+        dev = torch.device(devices[rank])
+        if dev.type == "cuda" and dev.index is not None:
+            torch.cuda.set_device(dev)
+        dist.init_process_group(backend, init_method=init,
+                                world_size=data * model, rank=rank)
+        mesh = make_mesh(data, model, devices=devices, backend=backend)
+        result = fn(mesh, *args)
+        # the model row's gloo group where there is one (serving TP)
+        dist.barrier(group=mesh.cpu_group if data == 1 else None)
+        out.put((rank, True, result))
+    except BaseException:
+        out.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def launch_ranks(fn, data: int, model: int, *, devices, backend: str,
+                 args=(), threads: Optional[int] = None,
+                 timeout: Optional[float] = None) -> list:
+    """Run ``fn(mesh, *args)`` on the ``data * model`` cells of a mesh,
+    one process each, and return every rank's result, rank 0's first.
+
+    Each rank is a process of its own (``multiprocessing``, ``spawn``)
+    joined to a ``backend`` group through a rendezvous file in a fresh
+    temporary directory (no port to collide on); rank r is cell
+    ``divmod(r, model)`` and runs on ``devices[r]``, with
+    ``torch.set_num_threads(threads)`` when given.  ``fn`` must be
+    importable by name (a module-level function) and return host objects.
+    A rank that raises or dies fails the launch, and the other ranks are
+    stopped: nothing falls back to fewer ranks."""
+    n = data * model
+    devices = [str(torch.device(d)) for d in devices]
+    if len(devices) != n:
+        raise ValueError(f"launch_ranks: {len(devices)} devices for {n} "
+                         "ranks")
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    tmp = tempfile.mkdtemp(prefix="repro-ranks-")
+    init = "file://" + os.path.join(tmp, "rendezvous")
+    procs = [ctx.Process(target=_rank_main, daemon=True,
+                         args=(fn, r, data, model, devices, backend, init,
+                               args, threads, out))
+             for r in range(n)]
+    results: dict = {}
+    deadline = None if timeout is None else time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.start()
+        while len(results) < n:
+            try:
+                rank, ok, payload = out.get(timeout=0.5)
+            except queue.Empty:
+                dead = [(r, p.exitcode) for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0)]
+                if dead or all(p.exitcode == 0 for p in procs) \
+                        and out.empty():
+                    raise RuntimeError(f"rank(s) exited without a result: "
+                                       f"{dead}")
+                if deadline is not None and time.monotonic() > deadline:
+                    raise TimeoutError(f"launch_ranks: no result within "
+                                       f"{timeout} s")
+                continue
+            if not ok:
+                raise RuntimeError(f"rank {rank} failed:\n{payload}")
+            results[rank] = payload
+        for p in procs:
+            p.join()
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return [results[r] for r in range(n)]

@@ -27,7 +27,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.actshard import maybe_psum, tp_will_reduce
+from repro_torch.core.actshard import (
+    maybe_psum, tp_copy, tp_reduce, tp_train, tp_will_reduce,
+)
 from repro_torch.kernels import ops as kops
 
 _NEG_INF = -1e30
@@ -114,7 +116,8 @@ def _attend_block(q, k, v, q_pos, kv_pos, window, scale, kv_valid=None):
 
 def causal_attention(q, k, v, cfg: ModelConfig, q_block: int = 512,
                      positions: Optional[torch.Tensor] = None,
-                     kv_valid: Optional[torch.Tensor] = None):
+                     kv_valid: Optional[torch.Tensor] = None,
+                     one_block: bool = False):
     """q: (B,S,H,Dh), k/v: (B,S,K,Dh) -> (B,S,H,Dh).  Full/sliding causal,
     q-block chunked so the (S, S) logits are never materialised at once.
 
@@ -122,7 +125,8 @@ def causal_attention(q, k, v, cfg: ModelConfig, q_block: int = 512,
     ``kv_valid`` ((S,) bool) excludes pad kv lines for every query
     (front-padded bucketed prefill).  ``kv_valid`` forces one block, as
     in the JAX version: the q-block loop derives each block's positions
-    from ``arange``."""
+    from ``arange``.  ``one_block`` computes every query row in one block
+    (the JAX sequence-parallel route)."""
     B, S, H, Dh = q.shape
     K = k.shape[2]
     G = H // K
@@ -131,7 +135,7 @@ def causal_attention(q, k, v, cfg: ModelConfig, q_block: int = 512,
     qg = q.reshape(B, S, K, G, Dh)
     kv_pos = torch.arange(S, device=q.device) if positions is None \
         else positions
-    if S <= q_block or kv_valid is not None:
+    if one_block or S <= q_block or kv_valid is not None:
         o = _attend_block(qg, k, v, kv_pos, kv_pos, window, scale,
                           kv_valid=kv_valid)
         return o.reshape(B, S, H, Dh)
@@ -150,12 +154,48 @@ def causal_attention(q, k, v, cfg: ModelConfig, q_block: int = 512,
 
 # -------------------------------------------------------------- training ----
 
+def _kv_of_local_heads(p: dict, cfg: ModelConfig, index: int) -> dict:
+    """``p`` with ``wk``/``wv`` (and their biases) cut to the kv heads that
+    the ``index``-th rank's query heads read, when the query heads shard
+    over the ``model`` ranks and the kv heads do not (GQA with fewer kv
+    heads than ranks).  A rank whose query heads fall evenly on its kv
+    heads keeps each kv head once; otherwise each query head gets its own
+    copy (MHA).  The gradient of the replicated leaves is then partial on
+    each rank (``core.zero`` sums it over the ranks)."""
+    h_local = p["wq"].shape[1]
+    group = cfg.num_heads // cfg.num_kv_heads
+    kv = [h // group for h in range(index * h_local, (index + 1) * h_local)]
+    uniq = sorted(set(kv))
+    if h_local % len(uniq) == 0 and all(
+            kv.count(j) == h_local // len(uniq) for j in uniq):
+        kv = uniq
+    idx = torch.tensor(kv, device=p["wk"].device)
+    out = dict(p)
+    for name in ("wk", "wv"):
+        out[name] = p[name].index_select(1, idx)
+    for name in ("bk", "bv"):
+        if name in p:
+            out[name] = p[name].index_select(0, idx)
+    return out
+
+
 def attention_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                    use_kernels: bool = False) -> torch.Tensor:
+                    use_kernels: bool = False,
+                    one_block: bool = False) -> torch.Tensor:
     """Full-sequence causal attention (training).  x: (B,S,d) -> (B,S,d).
     ``use_kernels`` runs the flash kernel (differentiable through its
-    plain version, ``kernels.ops``); otherwise :func:`causal_attention`."""
+    plain version, ``kernels.ops``); otherwise :func:`causal_attention`
+    (``one_block``: one q block).  Under training tensor parallelism
+    (``core.actshard.tp_train_scope``) with sharded heads the input is
+    the column-parallel point and the output projection the reduction
+    point."""
     S = x.shape[1]
+    plan = tp_train()
+    tp = plan is not None and plan.attn
+    if tp:
+        x = tp_copy(x)
+        if not plan.kv:
+            p = _kv_of_local_heads(p, cfg, plan.index)
     q, k, v = qkv_proj(p, x, cfg)
     if cfg.pos_embedding == "rope":
         pos = torch.arange(S, device=x.device)
@@ -164,8 +204,9 @@ def attention_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if use_kernels:
         o = kops.flash_attention(q, k, v, window=cfg.sliding_window)
     else:
-        o = causal_attention(q, k, v, cfg)
-    return out_proj(p, o)
+        o = causal_attention(q, k, v, cfg, one_block=one_block)
+    o = out_proj(p, o)
+    return tp_reduce(o) if tp else o
 
 
 # ---------------------------------------------------------------- caches ----

@@ -42,20 +42,26 @@ def _init_leaf(gen, ps: ParamSpec, dtype, device) -> torch.Tensor:
     return w.mul_(scale).to(dtype)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None):
+def init_params(cfg: ModelConfig, seed: int = 0, device=None, keep=None):
     """Materialize the parameter tree for ``cfg`` on ``device`` (CUDA
-    unless the caller asks for another), in ``cfg.param_dtype``."""
+    unless the caller asks for another), in ``cfg.param_dtype``.
+
+    ``keep(path, leaf)`` (``path`` the leaf's ``keystr`` name, as
+    ``repro_torch.tree`` names it) replaces each leaf as soon as it is
+    drawn, before the next: a rank keeps its shard of each and never
+    holds the whole tree.  The numbers drawn do not depend on it."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def build(tree):
+    def build(tree, path):
         if isinstance(tree, ParamSpec):
-            return _init_leaf(gen, tree, dtype, dev)
+            leaf = _init_leaf(gen, tree, dtype, dev)
+            return leaf if keep is None else keep(path, leaf)
         if isinstance(tree, dict):
-            return {k: build(v) for k, v in tree.items()}
+            return {k: build(v, f"{path}[{k!r}]") for k, v in tree.items()}
         if isinstance(tree, list):
-            return [build(v) for v in tree]
+            return [build(v, f"{path}[{i}]") for i, v in enumerate(tree)]
         raise TypeError(type(tree))
 
-    return build(model_spec(cfg))
+    return build(model_spec(cfg), "")

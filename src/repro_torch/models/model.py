@@ -31,9 +31,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core.actshard import (
+    snapshot, tp_copy, tp_gather_last, tp_reduce, tp_train, use_params,
+)
 from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -79,7 +83,17 @@ def _groups(params) -> int:
 
 def embed_tokens(params, tokens, cfg: ModelConfig):
     tab = params["embed"]["tok"].to(compute_dtype(cfg))
-    return tab[tokens]
+    plan = tp_train()
+    if plan is None or not plan.vocab:
+        return tab[tokens]
+    # vocab-parallel: each model rank holds rows [index * V/m, ...) of the
+    # table, looks up the tokens that fall there (zeros elsewhere), and
+    # the reduction point sums the one nonzero row of each token
+    n = tab.shape[0]
+    local = tokens - plan.index * n
+    hit = (local >= 0) & (local < n)
+    h = tab[torch.where(hit, local, 0)] * hit[..., None].to(tab.dtype)
+    return tp_reduce(h)
 
 
 def build_hidden(params, batch: dict, cfg: ModelConfig):
@@ -105,7 +119,14 @@ def build_hidden(params, batch: dict, cfg: ModelConfig):
 
 def unembed(params, h, cfg: ModelConfig):
     w = params["embed"]["tok"] if cfg.tie_embeddings else params["lm_head"]["w"]
-    return torch.einsum("bsd,vd->bsv", h, w.to(h.dtype))
+    plan = tp_train()
+    if plan is None or not plan.vocab:
+        return torch.einsum("bsd,vd->bsv", h, w.to(h.dtype))
+    # vocab-parallel head: this rank's logits columns, gathered along vocab
+    # in f32 (the cross entropy's dtype) for the loss, whose gradient each
+    # rank slices back
+    return tp_gather_last(torch.einsum("bsd,vd->bsv", tp_copy(h),
+                                       w.to(h.dtype)).float())
 
 
 # -------------------------------------------------------------- training ----
@@ -120,7 +141,8 @@ def sublayer_train(p, x, mixer: str, ffn: str, cfg: ModelConfig,
     aux = _zeros_aux(x.device)
     h = rmsnorm(x, p["norm1"]["scale"], cfg.norm_eps)
     if mixer == "attn":
-        h = A.attention_train(p["attn"], h, cfg, use_kernels=run.use_kernels)
+        h = A.attention_train(p["attn"], h, cfg, use_kernels=run.use_kernels,
+                              one_block=run.seq_parallel)
     else:
         h = SSM.ssm_train(p["ssm"], h, cfg, use_kernels=run.use_kernels)
     x = x + h
@@ -130,7 +152,12 @@ def sublayer_train(p, x, mixer: str, ffn: str, cfg: ModelConfig,
             h, moe_aux = MOE.moe_apply(p["moe"], h, cfg)
             aux = {k: aux[k] + moe_aux[k] for k in AUX_KEYS}
         else:
-            h = mlp_apply(p["mlp"], h, cfg.mlp_type)
+            plan = tp_train()
+            if plan is not None and plan.mlp:
+                # column-parallel w1/w3, row-parallel w2 (Megatron)
+                h = tp_reduce(mlp_apply(p["mlp"], tp_copy(h), cfg.mlp_type))
+            else:
+                h = mlp_apply(p["mlp"], h, cfg.mlp_type)
         x = x + h
     return x, aux
 
@@ -138,15 +165,26 @@ def sublayer_train(p, x, mixer: str, ffn: str, cfg: ModelConfig,
 def backbone_train(params, h, cfg: ModelConfig, run: RunConfig):
     """The layer groups in a Python loop; returns (h, aux sums).  Under
     ``run.remat`` in ("layer", "full") each group is recomputed in the
-    backward pass instead of keeping its activations."""
+    backward pass instead of keeping its activations.
+
+    Each group's parameters go into its body as the rank holds them and
+    are gathered there (``use_params``): under ZeRO-3 the gathered
+    weights are then not kept for the backward pass, which gathers them
+    again, as the JAX scan under ``jax.checkpoint`` does."""
     P = group_period(cfg)
     sched = layer_schedule(cfg)[:P]
+    # a recomputed body runs in the backward pass, where (on the card) the
+    # scopes installed around this call are not set: it installs its own
+    scopes = snapshot()
 
     def group_body(x, group_params):
-        acc = _zeros_aux(x.device)
-        for i, (mixer, ffn) in enumerate(sched):
-            x, aux = sublayer_train(group_params[i], x, mixer, ffn, cfg, run)
-            acc = {k: acc[k] + aux[k] for k in AUX_KEYS}
+        with scopes():
+            group_params = use_params(group_params, "layers")
+            acc = _zeros_aux(x.device)
+            for i, (mixer, ffn) in enumerate(sched):
+                x, aux = sublayer_train(group_params[i], x, mixer, ffn, cfg,
+                                        run)
+                acc = {k: acc[k] + aux[k] for k in AUX_KEYS}
         return x, acc
 
     if run.remat not in ("none", "layer", "full"):
@@ -163,29 +201,46 @@ def backbone_train(params, h, cfg: ModelConfig, run: RunConfig):
 
 
 def forward_train(params, batch: dict, cfg: ModelConfig, run: RunConfig):
+    params = use_params(params, "root")
     h = build_hidden(params, batch, cfg)
     h, aux = backbone_train(params, h, cfg, run)
     h = rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)
     return unembed(params, h, cfg), aux
 
 
-def softmax_xent(logits, labels, mask):
+def softmax_xent(logits, labels, mask, group=None):
     """Mean cross entropy over the tokens where ``mask`` is set, in f32
-    (the JAX one-hot sum, written as a gather)."""
+    (the JAX one-hot sum, written as a gather).  With ``group`` (the data
+    ranks of a mesh, each holding its rows of the batch) the mask count
+    is summed over the group, so the ranks' terms add up to the mean over
+    the global batch: a mean of per-rank means is wrong whenever the
+    masks differ."""
     lg = logits.to(torch.float32)
     lse = torch.logsumexp(lg, dim=-1)
     ll = torch.gather(lg, -1, labels.to(torch.int64)[..., None])[..., 0]
     per_tok = (lse - ll) * mask
-    return torch.sum(per_tok) / torch.clamp(torch.sum(mask), min=1.0)
+    count = torch.sum(mask)
+    if group is not None:
+        count = count.detach().clone()
+        dist.all_reduce(count, group=group)
+    return torch.sum(per_tok) / torch.clamp(count, min=1.0)
 
 
-def loss_fn(params, batch: dict, cfg: ModelConfig, run: RunConfig):
+def loss_fn(params, batch: dict, cfg: ModelConfig, run: RunConfig,
+            group=None):
+    """(loss, metrics).  With ``group`` (see :func:`softmax_xent`) both
+    are this rank's share of the global batch's, to be summed over the
+    group: the MoE aux terms, means over token groups that each lie in
+    one rank's rows, are divided by the group's size."""
     logits, aux = forward_train(params, batch, cfg, run)
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(batch["labels"].shape, dtype=torch.float32,
                           device=logits.device)
-    xent = softmax_xent(logits, batch["labels"], mask)
+    xent = softmax_xent(logits, batch["labels"], mask, group)
+    if group is not None:
+        share = 1.0 / dist.get_world_size(group)
+        aux = {k: aux[k] * share for k in AUX_KEYS}
     loss = xent
     if cfg.moe is not None:
         loss = (loss + cfg.moe.balance_coef * aux["moe_balance_loss"]

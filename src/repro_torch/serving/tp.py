@@ -38,13 +38,6 @@ the pool through ``models.paging.ShardedAllocatorView``.
 """
 from __future__ import annotations
 
-import multiprocessing as mp
-import os
-import queue
-import shutil
-import tempfile
-import time
-import traceback
 import zlib
 from dataclasses import dataclass, field
 from typing import Optional
@@ -250,84 +243,14 @@ def check_lockstep(group, what: str, plan) -> None:
 
 # -------------------------------------------------------------- processes ----
 
-def _rank_main(fn, rank, tp, devices, backend, init, args, threads, out):
-    """One rank: join the group, build the mesh, run ``fn(mesh, *args)``
-    and send back ``(rank, ok, result or traceback)``."""
-    from repro_torch.launch.mesh import make_mesh
-
-    try:
-        if threads:
-            torch.set_num_threads(threads)
-        dev = torch.device(devices[rank])
-        if dev.type == "cuda" and dev.index is not None:
-            torch.cuda.set_device(dev)
-        dist.init_process_group(backend, init_method=init, world_size=tp,
-                                rank=rank)
-        mesh = make_mesh(1, tp, devices=devices, backend=backend)
-        result = fn(mesh, *args)
-        dist.barrier(group=mesh.cpu_group)
-        out.put((rank, True, result))
-    except BaseException:
-        out.put((rank, False, traceback.format_exc()))
-        raise
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-
-
 def launch(fn, tp: int, *, devices, backend: str, args=(),
            threads: Optional[int] = None,
            timeout: Optional[float] = None) -> list:
-    """Run ``fn(mesh, *args)`` on ``tp`` ranks and return every rank's
-    result, rank 0's first.
+    """Run ``fn(mesh, *args)`` on ``tp`` ranks of a ``(1, tp)`` mesh and
+    return every rank's result, rank 0's first
+    (``launch.mesh.launch_ranks``: one ``spawn``ed process a rank, rank r
+    on ``devices[r]``; a rank that fails fails the launch)."""
+    from repro_torch.launch.mesh import launch_ranks
 
-    Each rank is a process of its own (``multiprocessing``, ``spawn``)
-    joined to a ``backend`` group through a rendezvous file in a fresh
-    temporary directory (no port to collide on); rank r runs on
-    ``devices[r]``, with ``torch.set_num_threads(threads)`` when given.
-    ``fn`` must be importable by name (a module-level function) and return
-    host objects.  A rank that raises or dies fails the launch, and the
-    other ranks are stopped: nothing falls back to fewer ranks."""
-    devices = [str(torch.device(d)) for d in devices]
-    if len(devices) != tp:
-        raise ValueError(f"launch: {len(devices)} devices for {tp} ranks")
-    ctx = mp.get_context("spawn")
-    out = ctx.Queue()
-    tmp = tempfile.mkdtemp(prefix="repro-tp-")
-    init = "file://" + os.path.join(tmp, "rendezvous")
-    procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(fn, r, tp, devices, backend, init, args,
-                               threads, out))
-             for r in range(tp)]
-    results: dict = {}
-    deadline = None if timeout is None else time.monotonic() + timeout
-    try:
-        for p in procs:
-            p.start()
-        while len(results) < tp:
-            try:
-                rank, ok, payload = out.get(timeout=0.5)
-            except queue.Empty:
-                dead = [(r, p.exitcode) for r, p in enumerate(procs)
-                        if p.exitcode not in (None, 0)]
-                if dead or all(p.exitcode == 0 for p in procs) \
-                        and out.empty():
-                    raise RuntimeError(f"tensor-parallel rank(s) exited "
-                                       f"without a result: {dead}")
-                if deadline is not None and time.monotonic() > deadline:
-                    raise TimeoutError(f"tensor-parallel launch: no result "
-                                       f"within {timeout} s")
-                continue
-            if not ok:
-                raise RuntimeError(f"tensor-parallel rank {rank} failed:\n"
-                                   f"{payload}")
-            results[rank] = payload
-        for p in procs:
-            p.join()
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.terminate()
-            p.join()
-        shutil.rmtree(tmp, ignore_errors=True)
-    return [results[r] for r in range(tp)]
+    return launch_ranks(fn, 1, tp, devices=devices, backend=backend,
+                        args=args, threads=threads, timeout=timeout)

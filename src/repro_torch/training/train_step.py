@@ -1,19 +1,26 @@
 """Train-step builder: loss + gradients (+ microbatch accumulation, the
-paper's gradient-accumulation knob) + AdamW — the port of the JAX
-package's ``training/train_step.py`` for one device.
+paper's gradient-accumulation knob), the ZeRO gradient layouts and AdamW
+on a mesh of ranks — the port of the JAX package's
+``training/train_step.py`` in eager SPMD.
 
-The mesh, the ZeRO gradient constraints and the ``gather_bf16`` /
-``grad_reduce_bf16`` options of the JAX step wait for the multi-device
-slice (ROADMAP A4): here the whole batch and every parameter sit on one
-device.  The step runs eagerly; the optimizer updates the parameters and
-its state in place (``optim.adamw``).
+Each rank of the ``(data, model)`` mesh (``launch.mesh.make_mesh``) runs
+the same step on its shard of the state, and the collectives GSPMD would
+insert are written out: the rank's batch rows (``batch_partition``), the
+tensor-parallel points of the model code (``core.actshard``), the ZeRO-3
+gathers at use and the gradient reductions (``core.zero``), and the norm
+of the global gradient (``optim.adamw.global_norm``).  On a one-cell mesh
+none of them does anything and the step is the one-device step.  It runs
+eagerly; the optimizer updates the parameters and its state in place.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.models.model import loss_fn
+from repro_torch.core.actshard import param_use_scope, tp_train_scope
+from repro_torch.core.zero import Layout
+from repro_torch.models.model import AUX_KEYS, loss_fn
 from repro_torch.optim.adamw import OptimizerConfig, adamw_update
 from repro_torch.tree import leaves, unflatten
 
@@ -21,52 +28,131 @@ METRIC_KEYS = ("loss", "xent", "moe_balance_loss", "moe_z_loss",
                "grad_norm", "lr")
 
 
-def make_train_step(cfg: ModelConfig, run: RunConfig, opt: OptimizerConfig):
-    """Returns ``step(params, opt_state, batch) -> (params, opt_state,
-    metrics)``.  ``batch`` leaves are (B, ...) tensors on the parameters'
-    device; with ``run.microbatches = n`` microbatch i is rows
-    ``[i * B/n, (i+1) * B/n)`` (the JAX ``reshape(n, B/n, ...)``), the
-    gradients are summed into an f32 accumulator and, like the metrics,
-    averaged over the microbatches."""
+def check_supported(cfg: ModelConfig, run: RunConfig, mesh) -> None:
+    """Refuse what the port does not shard yet (ROADMAP A4c): on more than
+    one ``model`` rank, sequence parallelism, deferred MoE combines, and
+    tensor parallelism of SSM, hybrid and MoE configs."""
+    from repro_torch.core.parallelism import get_strategy
 
-    def grads_of(params, batch):
+    if mesh.shape.get("model", 1) <= 1:
+        return
+    for knob in ("seq_parallel", "moe_defer_combine"):
+        if getattr(run, knob):
+            raise ValueError(
+                f"{knob} on a mesh of {mesh.shape['model']} model ranks is "
+                "a layout the port does not write out yet (ROADMAP A4c)")
+    if get_strategy(run.strategy).tp and (cfg.ssm is not None
+                                          or cfg.moe is not None):
+        raise ValueError(
+            f"strategy {run.strategy!r} on {mesh.shape['model']} model "
+            f"ranks would shard {cfg.name}'s SSM heads or experts, whose "
+            "reduction points the port does not write yet (ROADMAP A4c); "
+            "use dp or fsdp")
+
+
+def init_opt_state_sharded(params, opt: OptimizerConfig, layout: Layout):
+    """AdamW state of this rank's optimizer-layout slices of ``params`` (a
+    tree of parameter-layout shards)."""
+    from repro_torch.optim import init_opt_state
+
+    views = [layout.opt_view(leaf, p)
+             for leaf, p in zip(layout.leaves, leaves(params))]
+    return init_opt_state(unflatten(params, views), opt)
+
+
+def make_train_step(cfg: ModelConfig, run: RunConfig, mesh,
+                    opt: OptimizerConfig):
+    """Returns ``step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``.  ``params`` and ``opt_state`` are this rank's shards (the
+    whole trees on a one-cell mesh), ``batch`` the global batch: (B, ...)
+    tensors on the rank's device.  With ``run.microbatches = n``
+    microbatch i is rows ``[i * B/n, (i+1) * B/n)`` (the JAX ``reshape(n,
+    B/n, ...)``), of which the rank takes its block; the gradients are
+    summed into an f32 accumulator (bf16 under ``grad_reduce_bf16``) in
+    the ZeRO gradient layout and, like the metrics, averaged over the
+    microbatches."""
+    check_supported(cfg, run, mesh)
+    layout = Layout(cfg, mesh, run)
+    n = run.microbatches
+    # JAX casts in the microbatch loop only
+    red_dtype = torch.bfloat16 if (run.grad_reduce_bf16 and n > 1) else None
+    use = layout.param_use(grad_dtype=red_dtype)
+    world = layout.world > 1
+    data_group = mesh.group("data")
+    keys = ("loss", "xent") + AUX_KEYS
+    owned = [layout.owned(leaf) for leaf in layout.leaves] if world else None
+    norm_group = dist.group.WORLD if world else None
+
+    def rank_rows(batch, rows: int):
+        start, count = layout.batch_rows(rows)
+        if count == rows:
+            return batch
+        if cfg.moe is not None:
+            S = batch["labels"].shape[1]
+            gs = min(cfg.moe.group_size, rows * S)
+            if (count * S) % gs:
+                raise ValueError(
+                    f"MoE token groups of {gs} straddle the data ranks' "
+                    f"rows ({count} x {S} tokens a rank): the aux losses "
+                    "are means over groups that must lie in one rank")
+        return {k: v[start:start + count] for k, v in batch.items()}
+
+    def grads_of(params, batch, rows: int):
         xs = [p.detach().requires_grad_(True) for p in leaves(params)]
-        loss, metrics = loss_fn(unflatten(params, xs), batch, cfg, run)
-        # a leaf the forward does not read (the token table of an audio
-        # stub's batch of frame embeddings) gets zeros, as jax.grad gives
-        grads = torch.autograd.grad(loss, xs, allow_unused=True,
-                                    materialize_grads=True)
-        return grads, {k: v.detach() for k, v in metrics.items()}
+        with tp_train_scope(layout.tp), param_use_scope(use):
+            loss, metrics = loss_fn(unflatten(params, xs),
+                                    rank_rows(batch, rows), cfg, run,
+                                    group=data_group)
+            # a leaf the forward does not read (the token table of an audio
+            # stub's batch of frame embeddings) gets zeros, as jax.grad
+            # gives
+            grads = torch.autograd.grad(loss, xs, allow_unused=True,
+                                        materialize_grads=True)
+        grads = layout.reduce_grads(list(grads), dtype=red_dtype)
+        if data_group is None:
+            return grads, {k: v.detach() for k, v in metrics.items()}
+        # each rank's metrics are its share of the global ones
+        vec = torch.stack([metrics[k].detach().to(torch.float32)
+                           for k in keys])
+        dist.all_reduce(vec, group=data_group)
+        return grads, dict(zip(keys, vec.unbind()))
 
     def step(params, opt_state, batch):
-        n = run.microbatches
+        B = next(iter(batch.values())).shape[0]
         if n == 1:
-            grads, metrics = grads_of(params, batch)
+            grads, metrics = grads_of(params, batch, B)
         else:
-            B = next(iter(batch.values())).shape[0]
             if B % n:
                 raise ValueError(f"batch {B} does not split into {n} "
                                  "microbatches")
             b = B // n
+            acc_dt = torch.bfloat16 if red_dtype is not None \
+                else torch.float32
             grads, metrics = None, None
             for i in range(n):
                 g, m = grads_of(params, {k: v[i * b:(i + 1) * b]
-                                         for k, v in batch.items()})
+                                         for k, v in batch.items()}, b)
                 if grads is None:
-                    grads, metrics = [x.to(torch.float32) for x in g], m
+                    grads, metrics = [x.to(acc_dt) for x in g], m
                 else:
                     for acc, x in zip(grads, g):
-                        acc.add_(x)
+                        acc.add_(x.to(acc_dt))
                     metrics = {k: metrics[k] + m[k] for k in metrics}
                 del g
             for g in grads:
                 g.div_(n)
             metrics = {k: v / n for k, v in metrics.items()}
-        params, opt_state, opt_metrics = adamw_update(
-            params, unflatten(params, grads), opt_state, opt)
+        ps = leaves(params)
+        views = [layout.opt_view(leaf, p) for leaf, p in
+                 zip(layout.leaves, ps)]
+        _, opt_state, opt_metrics = adamw_update(
+            unflatten(params, views),
+            unflatten(params, layout.to_opt_layout(grads)), opt_state, opt,
+            owned=owned, group=norm_group)
+        layout.regather_params(ps)
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         return params, opt_state, metrics
 
+    step.layout = layout
     return step
-

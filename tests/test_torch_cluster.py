@@ -501,7 +501,7 @@ def _jax_script(weights, step_fn):
 
 
 def _port_trainer(tcfg, steps, **kw):
-    return Trainer(tcfg, RunConfig(use_kernels=True, microbatches=2),
+    return Trainer(tcfg, RunConfig(use_kernels=True, microbatches=2), None,
                    InputShape("t", SHAPE[1], SHAPE[0], "train"),
                    OptimizerConfig(**OPT),
                    TrainerConfig(steps=steps, log_every=100, **kw),
@@ -596,7 +596,7 @@ def smoke(one_thread):
     tcfg = get_reduced_config("mamba2-780m")
     targs = dict(batch=4, microbatches=2, seq_len=64, steps=4)
     t = Trainer(tcfg, RunConfig(use_kernels=True, remat="layer",
-                                microbatches=2),
+                                microbatches=2), None,
                 InputShape("s", 64, 4, "train"), OptimizerConfig(),
                 TrainerConfig(steps=5, seed=cs.SEED), device="cpu")
     reference = [h["loss"] for h in t.train(log=lambda *_: None)]

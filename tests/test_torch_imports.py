@@ -74,7 +74,9 @@ def test_port_imports_without_jax_repro_or_triton(tmp_path):
                 "configs.qwen2_moe_a2_7b", "configs.dbrx_132b",
                 "configs.jamba_1_5_large_398b", "configs.pixtral_12b",
                 "configs.musicgen_large", "serving.router",
-                "serving.autoscale"):
+                "serving.autoscale", "core.parallelism", "core.sharding",
+                "core.zero", "core.pipeline", "core.actshard",
+                "launch.mesh", "training.train_step"):
         assert f"repro_torch.{mod}" in out["modules"]
     assert not (tmp_path / "build").exists()
 

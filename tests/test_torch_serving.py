@@ -5,7 +5,9 @@ and requests (reduced stablelm-3b in f32, dense and paged caches,
 tokens, the per-token host loop (``fused=False``) gives the JAX host
 loop's tokens and, traced on one counting clock, the JAX engine's spans,
 temperature sampling follows its distribution, the CLI runs in every
-serving mode, and tensor parallelism (ROADMAP A4) refuses loudly.  The
+serving mode, and a mesh that is not the port's ``launch.mesh.Mesh``
+refuses loudly (tensor-parallel serving over the port's mesh is
+``test_torch_tp_serving.py``'s).  The
 prefix cache, chunked prefill and speculation have their own files
 (``test_torch_prefix.py``, ``test_torch_chunked.py``,
 ``test_torch_speculative.py``)."""

@@ -44,6 +44,7 @@ from repro_torch import checkpoint as tckpt
 from repro_torch.configs import InputShape, RunConfig, get_reduced_config
 from repro_torch.data import DataConfig, PackedStream
 from repro_torch.launch import train as tlaunch
+from repro_torch.launch.mesh import single_device_mesh
 from repro_torch.models import init_params, loss_fn, make_batch
 from repro_torch.models import model as TM
 from repro_torch.optim import (
@@ -295,7 +296,7 @@ def test_train_step_two_microbatches_matches_jax(jax_trainer, cpu_mesh):
             {k: jnp.asarray(v) for k, v in batch.items()})
     tparams = params_from_jax(params)
     step = make_train_step(tcfg, RunConfig(use_kernels=True, microbatches=2),
-                           opt)
+                           single_device_mesh("cpu"), opt)
     tp, ts, tm = step(tparams, init_opt_state(tparams, opt),
                       {k: torch.from_numpy(v) for k, v in batch.items()})
     assert set(tm) == set(jm)
@@ -314,7 +315,7 @@ def test_trainer_three_steps_match_jax(jax_trainer, cpu_mesh):
                                                jax_trainer.opt)
     with cpu_mesh:
         jh = jax_trainer.train(log=lambda *_: None)
-    t = Trainer(tcfg, RunConfig(use_kernels=True, microbatches=2),
+    t = Trainer(tcfg, RunConfig(use_kernels=True, microbatches=2), None,
                 InputShape("t", 64, 4, "train"), OptimizerConfig(**OPT),
                 TrainerConfig(steps=3, log_every=100), device="cpu")
     t.params = params_from_jax(params)
@@ -397,7 +398,7 @@ def test_trainer_resumes_after_requeue(tmp_path):
 
     def trainer(steps, **kw):
         return Trainer(tcfg, RunConfig(use_kernels=True, microbatches=2),
-                       shape, opt, TrainerConfig(steps=steps, log_every=100,
+                       None, shape, opt, TrainerConfig(steps=steps, log_every=100,
                                                  **kw), device="cpu")
 
     trainer(4, ckpt_every=2, ckpt_dir=str(tmp_path)).train(
