@@ -2311,22 +2311,33 @@ def tp_phase(args, device="cuda", reduced=False) -> dict:
 
 # ------------------------------------------------------- train parallel ----
 
-#: the train-parallel phase's bf16 runs at full width, the main path:
-#: (label, arch, (data, model), strategy, ZeRO stage)
+#: the train-parallel phase's bf16 runs at full width (qwen2-moe-a2.7b cut
+#: to ``MOE_LAYERS`` layers), the main path: (label, arch, (data, model),
+#: strategy, ZeRO stage, RunConfig knobs)
 TRAIN_PAR_RUNS = (
-    ("stablelm-3b fsdp_tp z3 2x2", "stablelm-3b", (2, 2), "fsdp_tp", 3),
-    ("stablelm-3b tp 1x2", "stablelm-3b", (1, 2), "tp", 3),
-    ("stablelm-3b fsdp z3 2x1", "stablelm-3b", (2, 1), "fsdp", 3),
-    ("mamba2-780m dp z1 2x1", "mamba2-780m", (2, 1), "dp", 1),
-    ("mamba2-780m dp z2 2x1", "mamba2-780m", (2, 1), "dp", 2))
-#: its f32 identity runs at 4 layers of stablelm-3b, each against the
-#: one-rank run: (label, (data, model), strategy, ZeRO stage)
-TRAIN_PAR_F32 = (("dp z1 2x1", (2, 1), "dp", 1),
-                 ("dp z2 2x1", (2, 1), "dp", 2),
-                 ("fsdp z2 2x1", (2, 1), "fsdp", 2),
-                 ("fsdp z3 2x1", (2, 1), "fsdp", 3),
-                 ("tp 1x2", (1, 2), "tp", 3),
-                 ("fsdp_tp z3 2x2", (2, 2), "fsdp_tp", 3))
+    ("stablelm-3b fsdp_tp z3 2x2", "stablelm-3b", (2, 2), "fsdp_tp", 3, {}),
+    ("stablelm-3b tp 1x2", "stablelm-3b", (1, 2), "tp", 3, {}),
+    ("stablelm-3b fsdp z3 2x1", "stablelm-3b", (2, 1), "fsdp", 3, {}),
+    ("mamba2-780m dp z1 2x1", "mamba2-780m", (2, 1), "dp", 1, {}),
+    ("mamba2-780m dp z2 2x1", "mamba2-780m", (2, 1), "dp", 2, {}),
+    ("mamba2-780m tp 1x2", "mamba2-780m", (1, 2), "tp", 3, {}),
+    ("qwen2-moe-a2.7b tp 1x2", "qwen2-moe-a2.7b", (1, 2), "tp", 3, {}))
+#: its f32 identity runs at 4 layers, each against the one-rank run of
+#: the same config: (label, arch, (data, model), strategy, ZeRO stage,
+#: RunConfig knobs)
+TRAIN_PAR_F32 = (("dp z1 2x1", "stablelm-3b", (2, 1), "dp", 1, {}),
+                 ("dp z2 2x1", "stablelm-3b", (2, 1), "dp", 2, {}),
+                 ("fsdp z2 2x1", "stablelm-3b", (2, 1), "fsdp", 2, {}),
+                 ("fsdp z3 2x1", "stablelm-3b", (2, 1), "fsdp", 3, {}),
+                 ("tp 1x2", "stablelm-3b", (1, 2), "tp", 3, {}),
+                 ("tp seq_parallel 1x2", "stablelm-3b", (1, 2), "tp", 3,
+                  {"seq_parallel": True}),
+                 ("mamba2-780m tp 1x2", "mamba2-780m", (1, 2), "tp", 3, {}),
+                 ("fsdp_tp z3 2x2", "stablelm-3b", (2, 2), "fsdp_tp", 3,
+                  {}))
+#: qwen2-moe-a2.7b's depth in the phase: 4 layers of 60 + 4 experts hold
+#: ~2.91 B parameters, 43.3 GiB of f32 state on one rank
+MOE_LAYERS = 4
 #: f32 identity: losses and gradient norms relative, final parameters
 #: against the largest magnitude of the one-rank run's, their update over
 #: the run (final - initial, the whole tree) relative L2; bf16 runs:
@@ -2343,12 +2354,22 @@ PAR_LOSS_TOL, PAR_PARAM_TOL, PAR_UPDATE_TOL, PAR_BF16_TOL = \
 _COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter")
 
 
+def _tensor_bytes(x) -> int:
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (list, tuple)):
+        return sum(_tensor_bytes(t) for t in x)
+    return 0
+
+
 @contextlib.contextmanager
 def timed_collectives(stats: dict, device):
     """Count and time, on the host, every ``torch.distributed`` collective
-    the training path issues inside the block: the device is synchronised
-    before and after each, so a reading holds the collective alone (gloo
-    copies CUDA tensors through the host and waits for them anyway)."""
+    the training path calls inside the block, and sum the bytes of the
+    tensors each hands over (``stats["bytes"]``: the input, or the list
+    of inputs, of each call): the device is synchronised before and after
+    each, so a reading holds the collective alone (gloo copies CUDA
+    tensors through the host and waits for them anyway)."""
     import torch.distributed as dist
 
     orig = {name: getattr(dist, name) for name in _COLLECTIVES}
@@ -2361,6 +2382,8 @@ def timed_collectives(stats: dict, device):
             sync(device)
             stats["s"] += time.perf_counter() - t0
             stats[name] += 1
+            stats["bytes"] += _tensor_bytes(a[1] if name != "all_reduce"
+                                            else a[0])
             return out
         return call
 
@@ -2410,27 +2433,46 @@ def reckon_train(cfg, layout, rows: int, S: int) -> dict:
             gathered += 4 * n_model // leaf.shape[0]
     d, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
     tp = layout.tp
-    m = layout.n_model if tp is not None else 1
+
+    def per_rank(n, sharded):          # a dim the model ranks split
+        return n // layout.n_model if tp is not None and sharded else n
+
     act = L * rows * S * d * c + 16 * rows * S * V
+    T = rows * S
     if cfg.ssm is None:
-        H = cfg.num_heads // (m if tp.attn else 1) if tp else cfg.num_heads
-        F_ = cfg.d_ff // (m if tp.mlp else 1) if tp else cfg.d_ff
-        act += 16 * rows * H * S * S + 4 * (12 * rows * S * d
-                                            + 8 * rows * S * F_)
+        H = per_rank(cfg.num_heads, tp and tp.attn)
+        F_ = per_rank(cfg.d_ff, tp and tp.mlp)
+        act += 16 * rows * H * S * S + 4 * (12 * T * d + 8 * T * F_)
     else:
         ssm = cfg.ssm
-        H, di = ssm.num_heads(d), ssm.d_inner(d)
-        act += 16 * rows * S * H * ssm.chunk + 4 * 30 * rows * S * di
+        H = per_rank(ssm.num_heads(d), tp and tp.ssm)
+        di = per_rank(ssm.d_inner(d), tp and tp.ssm)
+        act += 16 * T * H * ssm.chunk + 4 * 30 * T * di
+    if cfg.moe is not None:
+        # one MoE layer's recompute and backward: the routing tensors
+        # (G, gs, E, C) whole on every rank (the f32 combine, its k one-hot
+        # terms and their gradients, the bf16 dispatch), the rank's expert
+        # slots (G, E/m, C, d | d_ff/m) and the shared experts' hidden
+        moe = cfg.moe
+        gs = min(moe.group_size, T)
+        E = moe.num_experts
+        C = max(4, -(-math.ceil(gs * moe.top_k / E * moe.capacity_factor)
+                     // 4) * 4)
+        slots = (T // gs) * per_rank(E, tp and tp.experts) * C
+        f = per_rank(moe.d_ff, tp and tp.expert_ffn)
+        fs = per_rank(moe.d_ff * moe.num_shared, tp and tp.shared)
+        act += 4 * (2 * moe.top_k + 4) * T * E * C \
+            + 4 * 8 * slots * (d + 3 * f) + 4 * 8 * T * fs
     return {"shard": state + gathered, "act": act}
 
 
-def par_trainer(cfg, mesh, strategy, zero, S, B, device):
+def par_trainer(cfg, mesh, strategy, zero, S, B, device, knobs=None):
     from repro_torch.configs import InputShape, RunConfig
     from repro_torch.optim import OptimizerConfig
     from repro_torch.training import Trainer, TrainerConfig
 
     run = RunConfig(strategy=strategy, zero_stage=zero, use_kernels=True,
-                    remat="layer")
+                    remat="layer", **(knobs or {}))
     return Trainer(cfg, run, mesh, InputShape("par", S, B, "train"),
                    OptimizerConfig(), TrainerConfig(steps=1, seed=SEED),
                    device=device)
@@ -2471,7 +2513,7 @@ def par_run(trainer, steps: int, device) -> dict:
     on_card = torch.device(device).type == "cuda"
     held = torch.cuda.memory_allocated() if on_card else 0
     trainer.tcfg.steps = steps
-    stats = dict(s=0.0, **{name: 0 for name in _COLLECTIVES})
+    stats = dict(s=0.0, bytes=0, **{name: 0 for name in _COLLECTIVES})
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     sync(device)
@@ -2487,6 +2529,7 @@ def par_run(trainer, steps: int, device) -> dict:
             "step_s": statistics.median(h["sec"] for h in kept),
             "collective_s": stats["s"] / len(kept),
             "collectives": {n: stats[n] // len(kept) for n in _COLLECTIVES},
+            "collective_gib": stats["bytes"] / len(kept) / 2**30,
             "coll_share": stats["s"] / wall,
             "launches": ops.launch_counts(),
             "held_gib": held / 2**30,
@@ -2495,24 +2538,31 @@ def par_run(trainer, steps: int, device) -> dict:
 
 
 def _par_cfgs(reduced: bool):
+    """The phase's configs: the bf16 runs' by arch (qwen2-moe-a2.7b cut
+    to ``MOE_LAYERS`` layers) and the f32 identity runs' at 4 layers."""
     from repro_torch.configs import get_config, get_reduced_config
 
     get = get_reduced_config if reduced else get_config
-    cfgs = {a: get(a) for a in ("stablelm-3b", "mamba2-780m")}
-    f32cfg = dataclasses.replace(
-        cfgs["stablelm-3b"], dtype="float32",
-        num_layers=min(cfgs["stablelm-3b"].num_layers, 4))
-    return cfgs, f32cfg
+    cfgs = {a: get(a) for a in ("stablelm-3b", "mamba2-780m",
+                                "qwen2-moe-a2.7b")}
+    moe = cfgs["qwen2-moe-a2.7b"]
+    cfgs["qwen2-moe-a2.7b"] = dataclasses.replace(
+        moe, num_layers=min(moe.num_layers, MOE_LAYERS))
+    f32cfgs = {a: dataclasses.replace(cfgs[a], dtype="float32",
+                                      num_layers=min(cfgs[a].num_layers, 4))
+               for a in {e[1] for e in TRAIN_PAR_F32}}
+    return cfgs, f32cfgs
 
 
-def train_par_rank(mesh, jobs: dict, ref_path: str, S: int, B: int,
+def train_par_rank(mesh, jobs: dict, ref_paths: dict, S: int, B: int,
                    steps: dict, reduced: bool) -> dict:
     """One rank of the train-parallel phase: each of ``jobs["runs"]``
     (bf16, full width) and ``jobs["f32"]`` (4 layers, f32) through the
     port's ``Trainer`` on its mesh, ``steps[kind]`` steps each; for each,
     the rank's losses, step time, collectives, launches and peak memory
     against its reckoned bytes.  After an f32 run rank 0 holds the whole
-    final parameters against the one-rank run's (``ref_path``)."""
+    final parameters against the one-rank run's of the same config
+    (``ref_paths[arch]``)."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import init_params
     from repro_torch.tree import leaves
@@ -2522,21 +2572,21 @@ def train_par_rank(mesh, jobs: dict, ref_path: str, S: int, B: int,
     shapes = [(world, 1), (1, world)] if world == 2 else [(2, 2)]
     meshes = {s: make_mesh(*s, devices=[dev] * world, backend="gloo")
               for s in shapes}
-    cfgs, f32cfg = _par_cfgs(reduced)
+    cfgs, f32cfgs = _par_cfgs(reduced)
     out = {"runs": [], "f32": []}
     for kind, specs in (("runs", jobs["runs"]), ("f32", jobs["f32"])):
-        for label, arch, shape, strategy, zero in specs:
-            cfg = f32cfg if kind == "f32" else cfgs[arch]
+        for label, arch, shape, strategy, zero, knobs in specs:
+            cfg = f32cfgs[arch] if kind == "f32" else cfgs[arch]
             m = meshes[shape]
-            t = par_trainer(cfg, m, strategy, zero, S, B, dev)
+            t = par_trainer(cfg, m, strategy, zero, S, B, dev, knobs)
             r = par_run(t, steps[kind], dev)
             rows = t.layout.batch_rows(B)[1]
-            r.update(label=label, reckon=reckon_train(cfg, t.layout, rows,
-                                                      S))
+            r.update(label=label, arch=arch,
+                     reckon=reckon_train(cfg, t.layout, rows, S))
             if kind == "f32":
                 whole = leaves(t.layout.gather_tree(t.params))
                 if mesh.rank == 0:
-                    ref = torch.load(ref_path, map_location=dev)
+                    ref = torch.load(ref_paths[arch], map_location=dev)
                     init = leaves(init_params(cfg, SEED, dev))
                     r.update(update_errors(whole, ref, init))
                     del ref, init
@@ -2546,6 +2596,59 @@ def train_par_rank(mesh, jobs: dict, ref_path: str, S: int, B: int,
             gc.collect()
             empty_cache(dev)
     return out
+
+
+def shard_kernel_checks(cfgs, m: int, B: int, S: int):
+    """The two kernels of the tp runs at the shapes a rank of ``m`` hands
+    them, bf16: ``ssd_scan`` on mamba2-780m's ``H/m`` SSD heads and
+    ``flash_attention`` on qwen2-moe-a2.7b's ``H/m`` heads, each against
+    its plain version (and attention against SDPA), with their device
+    times and bounds, logged."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as ssd
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    bf16 = torch.bfloat16
+    cfg = cfgs["mamba2-780m"]
+    ssm = cfg.ssm
+    H, P, N = ssm.num_heads(cfg.d_model) // m, ssm.head_dim, ssm.state
+    # strided as ssm_train hands them over: slices of one conv output
+    u = rand(gen, (B, S, H * P + 2 * N), bf16)
+    x = u[..., :H * P].reshape(B, S, H, P)
+    Bm, Cm = u[..., H * P:H * P + N], u[..., H * P + N:]
+    dt = torch.rand((B, S, H), generator=gen, device="cuda") * 0.099 + 1e-3
+    A = -(torch.rand((H,), generator=gen, device="cuda") * 3.5 + 0.5)
+    a = dt * A
+    Q = ops._pick_block(S, ssm.chunk)
+    what = f"tp shard x({B},{S},{H},{P}) N {N} Q {Q} bf16"
+    check("ssd_scan", ssd.ssd_scan_bshp(x, dt, a, Bm, Cm, Q),
+          ref.ssd_scan_ref(x, dt, a, Bm, Cm, Q), bf16, what + " vs chunked",
+          relative=True)
+    ms = time_ms(lambda: ssd.ssd_scan_bshp(x, dt, a, Bm, Cm, Q))
+    plain = time_ms(lambda: ref.ssd_scan_ref(x, dt, a, Bm, Cm, Q))
+    T = B * S
+    pairs = Q * (Q + 1) // 2
+    b, by = bound_ms(2 * 2 * T * H * P + 4 * T * H + 4 * H + 2 * 2 * T * N,
+                     B * (S // Q) * (2 * pairs * N + H * (
+                         2 * pairs * P + 4 * Q * N * P)), bf16)
+    log(f"  ssd_scan at the {what}: kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, library n/a, bound {b:.4f} ms ({by})")
+    cfg = cfgs["qwen2-moe-a2.7b"]
+    h, k, Dh = cfg.num_heads // m, cfg.num_kv_heads // m, cfg.head_dim
+    q, kk, v = (rand(gen, (B, S, n, Dh), bf16) for n in (h, k, k))
+    what = f"tp shard q({B},{S},{h},{Dh}) kv {k} heads bf16"
+    check("flash_attention", fa.flash_attention_bshd(q, kk, v),
+          ref.attention_ref(q, kk, v, None), bf16, what)
+    ms = time_ms(lambda: fa.flash_attention_bshd(q, kk, v))
+    plain = time_ms(lambda: ref.attention_ref(q, kk, v, None))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), kk.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True))
+    b, by = bound_ms(2 * (2 * T * h * Dh + 2 * T * k * Dh),
+                     4 * Dh * h * B * S * (S + 1) / 2, bf16)
+    log(f"  flash_attention at the {what}: kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {b:.4f} ms ({by})")
 
 
 def one_rank_train(cfg, S, B, steps, device, strategy="fsdp_tp") -> tuple:
@@ -2561,25 +2664,29 @@ def one_rank_train(cfg, S, B, steps, device, strategy="fsdp_tp") -> tuple:
 def train_parallel_phase(args, device="cuda", reduced=False) -> dict:
     """Training parallelism through the port's ``Trainer`` on ranks that
     share ``device`` over gloo (``launch.mesh.launch_ranks``; NCCL takes
-    one rank per card): full-width stablelm-3b under fsdp_tp ZeRO 3 on
-    2 x 2 ranks, tp on 1 x 2 and fsdp ZeRO 3 on 2 x 1, full-width
-    mamba2-780m under dp ZeRO 1 and 2 on 2 x 1 (``reduced``: the reduced
-    configs, for a rehearsal on the CPU), each ``args["steps"]`` steps of
-    ``args["batch"]`` x ``args["seq_len"]`` tokens; then the f32 identity
-    runs at 4 layers, ``args["f32_steps"]`` steps each.  One-rank runs in this
-    process first: each bf16 config and the f32 one.  Gates: finite
-    losses, the first within 1.5 of ln(vocab); the ranks' losses and
-    gradient norms equal; bf16 losses within ``PAR_BF16_TOL`` of the
-    one-rank run's and gradient norms within ``PAR_BF16_TOL`` relative;
-    f32 losses and gradient norms within ``PAR_LOSS_TOL`` relative, final
-    parameters within ``PAR_PARAM_TOL`` of the largest magnitude and
-    their update within ``PAR_UPDATE_TOL`` relative L2 of the one-rank
-    run's; on the card a rank's peak memory within its reckoned shard +
-    activations + 1 GiB, and the attention (dense) or scan (SSM) kernel
-    launched twice a layer a step (forward and recomputation) on every
-    rank.  Returns the
-    bf16 runs (their launches, summed over the ranks, are main-path
-    launches) and the identity check."""
+    one rank per card), the runs of ``TRAIN_PAR_RUNS``: full-width
+    stablelm-3b under fsdp_tp ZeRO 3 on 2 x 2 ranks, tp on 1 x 2 and fsdp
+    ZeRO 3 on 2 x 1, full-width mamba2-780m under dp ZeRO 1 and 2 on 2 x
+    1 and tp on 1 x 2, qwen2-moe-a2.7b at full width and ``MOE_LAYERS``
+    layers under tp on 1 x 2 (``reduced``: the reduced configs, for a
+    rehearsal on the CPU), each ``args["steps"]`` steps of
+    ``args["batch"]`` x ``args["seq_len"]`` tokens; then the f32
+    identity runs of ``TRAIN_PAR_F32`` at 4 layers, ``args["f32_steps"]``
+    steps each.  On the card the two kernels first run at the tp ranks'
+    shard shapes against their plain versions
+    (:func:`shard_kernel_checks`).  One-rank runs in this process first:
+    each bf16 config and each f32 one.  Gates: finite losses, the first
+    within 1.5 of ln(vocab); the ranks' losses and gradient norms equal;
+    bf16 losses within ``PAR_BF16_TOL`` of the one-rank run's and
+    gradient norms within ``PAR_BF16_TOL`` relative; f32 losses and
+    gradient norms within ``PAR_LOSS_TOL`` relative, final parameters
+    within ``PAR_PARAM_TOL`` of the largest magnitude and their update
+    within ``PAR_UPDATE_TOL`` relative L2 of the one-rank run's; on the
+    card a rank's peak memory within its reckoned shard + activations +
+    1 GiB, and the attention (dense, MoE) or scan (SSM) kernel launched
+    twice a layer a step (forward and recomputation) on every rank.
+    Returns the bf16 runs (their launches, summed over the ranks, are
+    main-path launches) and the identity check."""
     import tempfile
 
     from repro_torch.launch.mesh import launch_ranks
@@ -2590,62 +2697,62 @@ def train_parallel_phase(args, device="cuda", reduced=False) -> dict:
         device = torch.device("cuda", torch.cuda.current_device())
     S, B = args["seq_len"], args["batch"]
     steps = {"runs": args["steps"], "f32": args["f32_steps"]}
-    cfgs, f32cfg = _par_cfgs(reduced)
+    cfgs, f32cfgs = _par_cfgs(reduced)
     gc.collect()
     empty_cache(device)
     t_phase = time.perf_counter()
+    if on_card:
+        shard_kernel_checks(cfgs, 2, B, S)
     refs = {}
     for arch, cfg in cfgs.items():
         refs[arch], t = one_rank_train(cfg, S, B, steps["runs"], device)
         r = refs[arch]
-        log(f"  one rank, {arch}: losses "
+        log(f"  one rank, {arch} ({cfg.num_layers} layers): losses "
             + ", ".join(f"{x:.4f}" for x in r["losses"])
             + "; gradient norms "
             + ", ".join(f"{x:.5f}" for x in r["grad_norms"])
             + f"; {r['step_s']:.3f} s/step, {B * S / r['step_s']:,.0f} "
             f"tok/s; state {r['held_gib']:.2f} GiB, peak "
-            f"{r['peak_gib']:.2f} GiB")
+            f"{r['peak_gib']:.2f} GiB; launches {r['launches']}")
         del t
         gc.collect()
         empty_cache(device)
-    ref32, t = one_rank_train(f32cfg, S, B, steps["f32"], device)
-    tmp = tempfile.mkdtemp(prefix="repro-train-par-")
-    ref_path = str(Path(tmp) / "f32-params.pt")
     from repro_torch.tree import leaves
-    torch.save([p.cpu() for p in leaves(t.params)], ref_path)
-    del t
-    gc.collect()
-    empty_cache(device)
-    log(f"  one rank, f32 {f32cfg.num_layers} layers: losses "
-        + ", ".join(f"{x:.6f}" for x in ref32["losses"])
-        + "; gradient norms "
-        + ", ".join(f"{x:.6f}" for x in ref32["grad_norms"]))
+    tmp = tempfile.mkdtemp(prefix="repro-train-par-")
+    ref32, ref_paths = {}, {}
+    for arch, f32cfg in f32cfgs.items():
+        ref32[arch], t = one_rank_train(f32cfg, S, B, steps["f32"], device)
+        ref_paths[arch] = str(Path(tmp) / f"{arch}-f32-params.pt")
+        torch.save([p.cpu() for p in leaves(t.params)], ref_paths[arch])
+        del t
+        gc.collect()
+        empty_cache(device)
+        log(f"  one rank, {arch} f32 {f32cfg.num_layers} layers: losses "
+            + ", ".join(f"{x:.6f}" for x in ref32[arch]["losses"])
+            + "; gradient norms "
+            + ", ".join(f"{x:.6f}" for x in ref32[arch]["grad_norms"]))
     threads = None if on_card else 1
+    on = {4: lambda e: e[2] == (2, 2), 2: lambda e: e[2] != (2, 2)}
+    jobs = {n: {"runs": [e for e in TRAIN_PAR_RUNS if on[n](e)],
+                "f32": [e for e in TRAIN_PAR_F32 if on[n](e)]}
+            for n in on}
     try:
         t0 = time.perf_counter()
         four = launch_ranks(train_par_rank, 2, 2, devices=[device] * 4,
                             backend="gloo", threads=threads, args=(
-                                {"runs": TRAIN_PAR_RUNS[:1],
-                                 "f32": [("fsdp_tp z3 2x2", "stablelm-3b",
-                                          *TRAIN_PAR_F32[-1][1:])]},
-                                ref_path, S, B, steps, reduced))
+                                jobs[4], ref_paths, S, B, steps, reduced))
         t4 = time.perf_counter() - t0
         t0 = time.perf_counter()
         two = launch_ranks(train_par_rank, 2, 1, devices=[device] * 2,
                            backend="gloo", threads=threads, args=(
-                               {"runs": TRAIN_PAR_RUNS[1:],
-                                "f32": [(lbl, "stablelm-3b", *rest)
-                                        for lbl, *rest in
-                                        TRAIN_PAR_F32[:-1]]},
-                               ref_path, S, B, steps, reduced))
+                               jobs[2], ref_paths, S, B, steps, reduced))
         t2 = time.perf_counter() - t0
     finally:
         import shutil
         shutil.rmtree(tmp, ignore_errors=True)
     runs = []
-    for ranks in (four, two):
-        for i, spec in enumerate(TRAIN_PAR_RUNS[:1] if ranks is four
-                                 else TRAIN_PAR_RUNS[1:]):
+    for world, ranks in ((4, four), (2, two)):
+        for i, spec in enumerate(jobs[world]["runs"]):
             label, arch = spec[0], spec[1]
             cfg = cfgs[arch]
             per = [rk["runs"][i] for rk in ranks]
@@ -2662,7 +2769,8 @@ def train_parallel_phase(args, device="cuda", reduced=False) -> dict:
                 bound = (rk["shard"] + rk["act"]) / 2**30
                 log(f"    rank {k}: {r['step_s']:.3f} s/step, collectives "
                     f"{r['collective_s']:.3f} s/step ({r['coll_share']:.1%} "
-                    f"of the steps; {r['collectives']} a step); peak "
+                    f"of the steps; {r['collectives']} a step, "
+                    f"{r['collective_gib']:.3f} GiB handed over); peak "
                     f"{r['peak_gib']:.2f} GiB against reckoned shard "
                     f"{rk['shard'] / 2**30:.2f} + activations "
                     f"{rk['act'] / 2**30:.2f} = {bound:.2f} GiB (state "
@@ -2704,6 +2812,7 @@ def train_parallel_phase(args, device="cuda", reduced=False) -> dict:
             runs.append({"label": label, "step_s": per[0]["step_s"],
                          "one_rank_step_s": ref["step_s"],
                          "coll_share": per[0]["coll_share"],
+                         "collective_gib": per[0]["collective_gib"],
                          "peak_gib": [r["peak_gib"] for r in per],
                          "launches": {n: sum(r["launches"][n] for r in per)
                                       for n in per[0]["launches"]}})
@@ -2711,10 +2820,11 @@ def train_parallel_phase(args, device="cuda", reduced=False) -> dict:
     for ranks in (four, two):
         for r in (rk["f32"] for rk in ranks[:1]):
             for x in r:
+                one = ref32[x["arch"]]
                 rel = max(abs(a - b) / abs(b) for a, b in
-                          zip(x["losses"], ref32["losses"]))
+                          zip(x["losses"], one["losses"]))
                 grel = max(abs(a - b) / abs(b) for a, b in
-                           zip(x["grad_norms"], ref32["grad_norms"]))
+                           zip(x["grad_norms"], one["grad_norms"]))
                 perr = x["param_err"] / x["param_scale"]
                 ident.append((x["label"], rel, grel, perr, x["update_l2"]))
                 log(f"  f32 identity {x['label']}: losses "
@@ -2727,7 +2837,8 @@ def train_parallel_phase(args, device="cuda", reduced=False) -> dict:
                     f"element {x['update_max']:.3e}) within "
                     f"{x['update_l2']:.2e} relative L2 (tol "
                     f"{PAR_UPDATE_TOL:g}); {x['step_s']:.3f} s/step, "
-                    f"collectives {x['coll_share']:.1%}")
+                    f"collectives {x['coll_share']:.1%} "
+                    f"({x['collectives']} a step)")
                 if not (rel <= PAR_LOSS_TOL and grel <= PAR_LOSS_TOL
                         and perr <= PAR_PARAM_TOL
                         and x["update_l2"] <= PAR_UPDATE_TOL):
@@ -2956,9 +3067,11 @@ def run_train_parallel(tcfg, cfg, at) -> dict:
     # three a run put the script past half its time limit
     pargs = dict(seq_len=1024, batch=4, steps=1, f32_steps=2)
     log(f"[13/14] {at()}: train parallel: full-width {cfg.name} (fsdp_tp "
-        f"ZeRO 3 on 2 x 2 ranks, tp on 1 x 2, fsdp ZeRO 3 on 2 x 1) and "
-        f"{tcfg.name} (dp ZeRO 1 and 2 on 2 x 1), ranks sharing the card "
-        f"over gloo, seed-{SEED} f32 weights, bf16 compute, remat=layer, "
+        f"ZeRO 3 on 2 x 2 ranks, tp on 1 x 2, fsdp ZeRO 3 on 2 x 1), "
+        f"{tcfg.name} (dp ZeRO 1 and 2 on 2 x 1, tp on 1 x 2) and "
+        f"qwen2-moe-a2.7b at full width, {MOE_LAYERS} layers (one rank, "
+        f"tp on 1 x 2: expert parallel), ranks sharing the card over "
+        f"gloo, seed-{SEED} f32 weights, bf16 compute, remat=layer, "
         f"{pargs['batch']} x {pargs['seq_len']} tokens a step, "
         f"{pargs['steps']} step(s) a run; then f32 at 4 layers against "
         f"one rank, {pargs['f32_steps']} steps a run")
@@ -3153,7 +3266,7 @@ def main(argv=None) -> int:
         "paged, the four modes, the families' five runs, the elastic "
         "phase's five, the TP phase's two on both ranks), the kept train "
         "steps, the cluster phase's two jobs and the train-parallel "
-        "phase's five runs on every rank)")
+        "phase's seven runs on every rank)")
     log("kernels " + json.dumps(summary))
     log(smi)
     line = {"kernels": [dict(name=name, route=r["route"], source=r["source"],

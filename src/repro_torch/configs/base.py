@@ -142,12 +142,14 @@ class RunConfig:
     (``core.sharding``, ``core.zero``); ``gather_bf16`` and
     ``grad_reduce_bf16`` move the ZeRO-3 gathers and the gradient
     reductions in bf16, as in the JAX step.  ``seq_parallel`` computes
-    training attention in one q block (the JAX ``one_block``);
-    ``seq_parallel`` and ``moe_defer_combine`` are layouts of a mesh with
-    more than one ``model`` rank that the port refuses there (ROADMAP
-    A4c).  ``unroll`` is accepted and does nothing: it makes the JAX
-    step's scans straight-line HLO for XLA's cost analysis, and the
-    port's loops are Python loops already."""
+    training attention in one q block (the JAX ``one_block``) and, under
+    a TP strategy on more than one ``model`` rank, shards the residual
+    stream's sequence there (``models.model.forward_train``);
+    ``moe_defer_combine`` moves the TP-in-expert reduction from the
+    expert outputs to after the combine (``models.moe``).  Neither
+    changes the numbers.  ``unroll`` is accepted and does nothing: it
+    makes the JAX step's scans straight-line HLO for XLA's cost
+    analysis, and the port's loops are Python loops already."""
     strategy: str = "fsdp_tp"     # dp | tp | fsdp | fsdp_tp | pp
     zero_stage: int = 3           # 1 | 2 | 3 (ZeRO partitioning depth)
     microbatches: int = 1         # gradient-accumulation microbatches

@@ -30,9 +30,29 @@ kind (``"attn_out"`` | ``"mlp_out"``) and counted.  It is forward-only.
 :func:`tp_copy` (forward identity, backward all-reduce) at the input of
 a column-parallel product and :func:`tp_reduce` (forward all-reduce,
 backward identity) after a row-parallel one; :func:`tp_gather_last`
-gathers vocab-parallel logits.  :func:`use_params` is the ZeRO-3 point:
-the train step installs a function (``core.zero``) that all-gathers the
-data-sharded parameters where the model uses them.
+gathers vocab-parallel logits.  :func:`tp_sum` all-reduces both ways
+(a statistic each rank reads for its own slice, such as the gated
+norm's sum of squares over a sharded ``d_inner``).
+
+Under the ``seq_parallel`` layout the residual stream between blocks
+holds this rank's rows of the sequence (Megatron-SP):
+:func:`seq_gather` (all-gather, backward reduce-scatter) enters a
+block, :func:`seq_scatter` (reduce-scatter, backward all-gather) leaves
+a block whose weights are sharded and :func:`seq_slice` (this rank's
+rows, backward zero-pad) one whose weights are replicated.
+
+A block that runs between an entry and an exit point
+(:func:`tp_enter`, :func:`tp_exit`) sees, in the backward pass, a
+*share* of each gradient on every rank: the entry sums the ranks'
+shares, so a leaf the block holds whole (model-replicated) gets a
+share too, which ``core.zero`` sums over the ``model`` ranks.  A value
+the block computes whole on every rank (the MoE aux losses, the output
+of a replicated part) turns its whole gradient into a share through
+:func:`tp_share`.
+
+:func:`use_params` is the ZeRO-3 point: the train step installs a
+function (``core.zero``) that all-gathers the data-sharded parameters
+where the model uses them.
 """
 from __future__ import annotations
 
@@ -133,7 +153,15 @@ class TrainTP:
     (and ``kv`` when the kv heads divide too; otherwise each rank slices
     the kv heads its query heads use from the replicated ``wk``/``wv``);
     ``mlp``: the FFN hidden dim; ``vocab``: the embedding table's and the
-    LM head's rows."""
+    LM head's rows; ``ssm``: the SSD heads (and with them the inner dim);
+    ``ssm_inner``: the inner dim (``wz``/``wx``/``norm_scale``/``wo``),
+    also where the heads do not divide; ``experts``: the routed experts
+    (expert parallelism); ``expert_ffn``: each expert's ``d_ff``
+    (TP-in-expert, where the expert count does not divide); ``shared``:
+    the shared experts' ``d_ff``.  ``seq_parallel`` is the run's knob;
+    ``seq`` is set for one forward pass whose sequence divides ``size``
+    (:meth:`seq_rows`): the residual stream then holds this rank's
+    rows."""
     group: object
     index: int
     size: int
@@ -141,6 +169,19 @@ class TrainTP:
     kv: bool = False
     mlp: bool = False
     vocab: bool = False
+    ssm: bool = False
+    ssm_inner: bool = False
+    experts: bool = False
+    expert_ffn: bool = False
+    shared: bool = False
+    seq_parallel: bool = False
+    seq: bool = False
+
+    def seq_rows(self, S: int) -> bool:
+        """Whether a sequence of ``S`` positions is sharded over the
+        ranks under ``seq_parallel`` (the JAX rules' ``seq()``: when
+        ``S`` divides)."""
+        return self.seq_parallel and S % self.size == 0 and S >= self.size
 
 
 _TRAIN_TP: contextvars.ContextVar[Optional[TrainTP]] = contextvars.ContextVar(
@@ -205,6 +246,72 @@ class _GatherLast(torch.autograd.Function):
         return g.narrow(-1, ctx.index * ctx.n, ctx.n), None, None, None
 
 
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce_f32(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_f32(g, ctx.group), None
+
+
+class _Share(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, size):
+        ctx.size = size
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.size, None
+
+
+def _gather_dim(x: torch.Tensor, dim: int, group, size: int):
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _scatter_dim_f32(x: torch.Tensor, dim: int, group, size: int):
+    """This rank's block along ``dim`` of the sum over ``group``, reduced
+    in f32 and returned in ``x``'s dtype."""
+    chunks = [c.to(torch.float32).contiguous()
+              for c in x.chunk(size, dim=dim)]
+    out = torch.empty_like(chunks[0])
+    dist.reduce_scatter(out, chunks, group=group)
+    return out.to(x.dtype)
+
+
+class _GatherSum(torch.autograd.Function):
+    """All-gather along ``dim``; the backward reduce-scatters."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, size):
+        ctx.dim, ctx.group, ctx.size = dim, group, size
+        return _gather_dim(x, dim, group, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_scatter_dim_f32(g, ctx.dim, ctx.group, ctx.size), None,
+                None, None)
+
+
+class _ScatterSum(torch.autograd.Function):
+    """Reduce-scatter along ``dim``; the backward all-gathers."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, size):
+        ctx.dim, ctx.group, ctx.size = dim, group, size
+        return _scatter_dim_f32(x, dim, group, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, ctx.dim, ctx.group, ctx.size), None, None, None
+
+
 def tp_copy(x: torch.Tensor) -> torch.Tensor:
     """The input of a column-parallel product: the identity forward; the
     backward sums the input's gradient over the ``model`` ranks, each of
@@ -229,6 +336,86 @@ def tp_gather_last(x: torch.Tensor) -> torch.Tensor:
     if plan is None:
         return x
     return _GatherLast.apply(x, plan.group, plan.index, plan.size)
+
+
+def tp_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the ``model`` ranks (in f32), forward and backward:
+    for a value every rank reads for its own slice, whose gradient each
+    rank therefore holds in part."""
+    plan = _TRAIN_TP.get()
+    return x if plan is None else _Sum.apply(x, plan.group)
+
+
+def tp_share(x: torch.Tensor) -> torch.Tensor:
+    """The identity forward; the backward divides the gradient by the
+    rank count: a value computed whole on every rank inside a block whose
+    gradients are shares (module docstring)."""
+    plan = _TRAIN_TP.get()
+    return x if plan is None else _Share.apply(x, plan.size)
+
+
+def tp_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The whole of a leaf sharded on ``dim`` over the ``model`` ranks,
+    for a block that runs it whole; the backward sums the ranks' shares
+    of its gradient and keeps this rank's block (a reduce-scatter)."""
+    plan = _TRAIN_TP.get()
+    if plan is None:
+        return x
+    return _GatherSum.apply(x, dim, plan.group, plan.size)
+
+
+def seq_gather(x: torch.Tensor) -> torch.Tensor:
+    """(B, S/m, ...) rows of every rank -> (B, S, ...) in rank order; the
+    backward reduce-scatters (sums the ranks' parts of the gradient and
+    keeps this rank's rows).  The identity unless the stream is
+    sequence-sharded."""
+    plan = _TRAIN_TP.get()
+    if plan is None or not plan.seq:
+        return x
+    return _GatherSum.apply(x, 1, plan.group, plan.size)
+
+
+def seq_scatter(x: torch.Tensor) -> torch.Tensor:
+    """A partial (B, S, ...) summed over the ranks, of which this rank
+    keeps its rows (a reduce-scatter in f32); the backward all-gathers.
+    The identity unless the stream is sequence-sharded."""
+    plan = _TRAIN_TP.get()
+    if plan is None or not plan.seq:
+        return x
+    return _ScatterSum.apply(x, 1, plan.group, plan.size)
+
+
+def seq_slice(x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of a (B, S, ...) value every rank holds whole;
+    the backward zero-pads (the entry's reduce-scatter sums the ranks'
+    rows).  The identity unless the stream is sequence-sharded."""
+    plan = _TRAIN_TP.get()
+    if plan is None or not plan.seq:
+        return x
+    n = x.shape[1] // plan.size
+    return x.narrow(1, plan.index * n, n)
+
+
+def tp_enter(x: torch.Tensor) -> torch.Tensor:
+    """The entry of a block run between points: :func:`seq_gather` on a
+    sequence-sharded stream, else :func:`tp_copy`."""
+    plan = _TRAIN_TP.get()
+    if plan is None:
+        return x
+    return seq_gather(x) if plan.seq else _Copy.apply(x, plan.group)
+
+
+def tp_exit(x: torch.Tensor, partial: bool) -> torch.Tensor:
+    """The exit of a block run between points: a ``partial`` output (the
+    ranks' shards summed) through :func:`seq_scatter` or
+    :func:`tp_reduce`; a whole one (every rank computed all of it)
+    through :func:`seq_slice` or :func:`tp_share`."""
+    plan = _TRAIN_TP.get()
+    if plan is None:
+        return x
+    if partial:
+        return seq_scatter(x) if plan.seq else _Reduce.apply(x, plan.group)
+    return seq_slice(x) if plan.seq else _Share.apply(x, plan.size)
 
 
 # ------------------------------------------------------- ZeRO-3 gathers ----

@@ -65,6 +65,7 @@ class Leaf:
     param: tuple                 # spec in the parameter layout
     opt: tuple                   # spec in the optimizer (and ZeRO-2 grad)
     partial_model: bool = False  # its gradient is partial over `model`
+    partial_seq: bool = False    # ... when the sequence is sharded there
 
     @property
     def data_dim(self) -> Optional[int]:
@@ -98,39 +99,73 @@ class Layout:
         shapes = [ps.shape for _, ps in _ps_leaves(model_spec(cfg))]
         pl, ol = shd.spec_leaves(p_specs), shd.spec_leaves(o_specs)
         self.tp = self._tp_plan(p_specs)
-        partial = self._partial_leaves(p_specs)
-        self.leaves = [Leaf(path, shape, p, o, path in partial)
+        partial = self._partial_leaves(p_specs, seq=False)
+        partial_seq = self._partial_leaves(p_specs, seq=True)
+        self.leaves = [Leaf(path, shape, p, o, path in partial,
+                            path in partial_seq)
                        for (path, p), (_, o), shape in zip(pl, ol, shapes)]
 
     # ------------------------------------------------------------ plans ----
     def _tp_plan(self, p_specs) -> Optional[TrainTP]:
         """What the model axis shards, read from the parameter specs of
-        the first sublayer of each kind."""
+        the first sublayer of each kind (stacked: the layers dim first)."""
         if self.n_model <= 1 or not self.strategy.tp:
             return None
-        attn = kv = mlp = False
+        on = {}
         for sub in p_specs["layers"]:
             if "attn" in sub:
-                attn = "model" in sub["attn"]["wq"]
-                kv = "model" in sub["attn"]["wk"]
+                on.setdefault("attn", "model" in sub["attn"]["wq"])
+                on.setdefault("kv", "model" in sub["attn"]["wk"])
             if "mlp" in sub:
-                mlp = "model" in sub["mlp"]["w1"]
-        vocab = "model" in p_specs["embed"]["tok"]
+                on.setdefault("mlp", "model" in sub["mlp"]["w1"])
+            if "ssm" in sub:
+                on.setdefault("ssm", "model" in sub["ssm"]["wdt"])
+                on.setdefault("ssm_inner", "model" in sub["ssm"]["wx"])
+            if "moe" in sub:
+                w1 = sub["moe"]["w1"]              # (layers, E, d, f)
+                on.setdefault("experts", _dim(w1, "model") == 1)
+                on.setdefault("expert_ffn", _dim(w1, "model") == 3)
+                if "shared" in sub["moe"]:
+                    on.setdefault("shared",
+                                  "model" in sub["moe"]["shared"]["w1"])
         return TrainTP(self.mesh.group("model"), self.m, self.n_model,
-                       attn=attn, kv=kv, mlp=mlp, vocab=vocab)
+                       vocab="model" in p_specs["embed"]["tok"],
+                       seq_parallel=self.run.seq_parallel, **on)
 
-    def _partial_leaves(self, p_specs) -> set:
-        """Leaves whose gradient each model rank holds only in part: the
-        replicated kv projections of head-sharded attention (each rank
-        reads the kv heads of its own query heads).  A norm scale, by
-        contrast, gets its whole gradient on every rank."""
-        if self.tp is None or not self.tp.attn or self.tp.kv:
+    def _partial_leaves(self, p_specs, seq: bool) -> set:
+        """Leaves whose gradient each model rank holds only in part (a
+        share, ``core.actshard``): the model-replicated leaves of every
+        block that runs between points — one that shards any of its
+        weights (the replicated kv projections of head-sharded attention;
+        the SSD block's ``wB``/``wC`` and conv, which every head shard
+        reads whole; the MoE router) — and, with the sequence sharded
+        (``seq``), every model-replicated leaf: the blocks, the norm
+        scales, a replicated embedding and head.  A leaf outside them (a
+        norm scale without ``seq``) gets its whole gradient on every
+        rank."""
+        if self.tp is None or (seq and not self.tp.seq_parallel):
             return set()
+
+        def replicated(tree, path):
+            if isinstance(tree, dict):
+                return [x for k in tree
+                        for x in replicated(tree[k], f"{path}[{k!r}]")]
+            return [] if "model" in tree else [path]
+
         out = set()
         for i, sub in enumerate(p_specs["layers"]):
-            for name in ("wk", "wv", "bk", "bv"):
-                if name in sub.get("attn", {}):
-                    out.add(f"['layers'][{i}]['attn'][{name!r}]")
+            for block, tree in sub.items():
+                if block.startswith("norm"):
+                    share = seq
+                else:
+                    share = seq or any("model" in spec for _, spec in
+                                       shd.spec_leaves(tree))
+                if share:
+                    out.update(replicated(tree, f"['layers'][{i}][{block!r}]"))
+        if seq:
+            for k in p_specs:
+                if k != "layers":
+                    out.update(replicated(p_specs[k], f"[{k!r}]"))
         return out
 
     @property
@@ -237,19 +272,25 @@ class Layout:
                 and (_dim(o, "model") is not None or self.m == 0))
 
     # --------------------------------------------------------- gradients ----
-    def reduce_grads(self, grads: list, dtype=None) -> list:
+    def seq_rows(self, S: int) -> bool:
+        """Whether a forward pass of ``S`` positions shards the sequence
+        over the model ranks (``TrainTP.seq_rows``)."""
+        return self.tp is not None and self.tp.seq_rows(S)
+
+    def reduce_grads(self, grads: list, dtype=None, seq: bool = False) -> list:
         """The gradient side of the JAX ``constrain_grads``: one backward
         pass's gradients (parameter layout; a ZeRO-3 leaf's already summed
         over ``data`` by its gather) -> the ZeRO gradient layout
-        (``grad_shardings``), summed over the batch's ranks.
-        ``dtype`` (bf16 under ``grad_reduce_bf16``) is cast to before any
-        reduction."""
+        (``grad_shardings``), summed over the batch's ranks and, for the
+        partial leaves (of a pass with the sequence sharded: ``seq``),
+        over the model ranks.  ``dtype`` (bf16 under
+        ``grad_reduce_bf16``) is cast to before any reduction."""
         out = []
         split = self.n_data > 1
         for leaf, g in zip(self.leaves, grads):
             if dtype is not None:
                 g = g.to(dtype)
-            if leaf.partial_model:
+            if leaf.partial_seq if seq else leaf.partial_model:
                 g = g.contiguous()
                 dist.all_reduce(g, group=self.mesh.group("model"))
             if split and leaf.data_dim is None:

@@ -28,7 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.actshard import (
-    maybe_psum, tp_copy, tp_reduce, tp_train, tp_will_reduce,
+    maybe_psum, tp_enter, tp_exit, tp_train, tp_will_reduce,
 )
 from repro_torch.kernels import ops as kops
 
@@ -188,14 +188,17 @@ def attention_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
     (``one_block``: one q block).  Under training tensor parallelism
     (``core.actshard.tp_train_scope``) with sharded heads the input is
     the column-parallel point and the output projection the reduction
-    point."""
-    S = x.shape[1]
+    point.  With the sequence sharded (``seq_parallel``) the block enters
+    on the gathered sequence and leaves with this rank's rows (through a
+    reduce-scatter, or a slice where the heads are replicated): the flash
+    kernel takes one length for q and k, with causal positions from 0."""
     plan = tp_train()
-    tp = plan is not None and plan.attn
-    if tp:
-        x = tp_copy(x)
-        if not plan.kv:
+    points = plan is not None and (plan.attn or plan.seq)
+    if points:
+        x = tp_enter(x)
+        if plan.attn and not plan.kv:
             p = _kv_of_local_heads(p, cfg, plan.index)
+    S = x.shape[1]
     q, k, v = qkv_proj(p, x, cfg)
     if cfg.pos_embedding == "rope":
         pos = torch.arange(S, device=x.device)
@@ -206,7 +209,7 @@ def attention_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
     else:
         o = causal_attention(q, k, v, cfg, one_block=one_block)
     o = out_proj(p, o)
-    return tp_reduce(o) if tp else o
+    return tp_exit(o, partial=plan.attn) if points else o
 
 
 # ---------------------------------------------------------------- caches ----

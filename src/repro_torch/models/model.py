@@ -28,6 +28,7 @@ consumes them.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -36,7 +37,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.actshard import (
-    snapshot, tp_copy, tp_gather_last, tp_reduce, tp_train, use_params,
+    seq_gather, seq_slice, snapshot, tp_enter, tp_exit, tp_gather_last,
+    tp_reduce, tp_share, tp_sum, tp_train, tp_train_scope, use_params,
 )
 from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
@@ -88,19 +90,21 @@ def embed_tokens(params, tokens, cfg: ModelConfig):
         return tab[tokens]
     # vocab-parallel: each model rank holds rows [index * V/m, ...) of the
     # table, looks up the tokens that fall there (zeros elsewhere), and
-    # the reduction point sums the one nonzero row of each token
+    # the reduction point sums the one nonzero row of each token (both
+    # ways when the rows are sliced after it: the gradient is then a share)
     n = tab.shape[0]
     local = tokens - plan.index * n
     hit = (local >= 0) & (local < n)
     h = tab[torch.where(hit, local, 0)] * hit[..., None].to(tab.dtype)
-    return tp_reduce(h)
+    return tp_sum(h) if plan.seq else tp_reduce(h)
 
 
 def build_hidden(params, batch: dict, cfg: ModelConfig):
     """Input hidden states from tokens and/or stub embeddings: the VLM
     stub's ``prefix_embeddings`` and the audio stub's
     ``frame_embeddings`` go ahead of the tokens, and sinusoidal PE spans
-    the whole length."""
+    the whole length.  With the sequence sharded over the training TP
+    ranks, this rank's rows of them."""
     dtype = compute_dtype(cfg)
     parts = []
     if "prefix_embeddings" in batch:                 # vlm: ViT stub output
@@ -114,18 +118,30 @@ def build_hidden(params, batch: dict, cfg: ModelConfig):
         S = h.shape[1]
         pe = A.sinusoidal_pe(torch.arange(S, device=h.device), cfg.d_model)
         h = h + pe.to(dtype)[None]
-    return h
+    return seq_slice(h)
+
+
+def hidden_len(batch: dict) -> int:
+    """The sequence length :func:`build_hidden` makes of ``batch``."""
+    return sum(batch[k].shape[1] for k in ("prefix_embeddings",
+                                            "frame_embeddings", "tokens")
+               if k in batch)
 
 
 def unembed(params, h, cfg: ModelConfig):
     w = params["embed"]["tok"] if cfg.tie_embeddings else params["lm_head"]["w"]
     plan = tp_train()
-    if plan is None or not plan.vocab:
+    if plan is None or not (plan.vocab or plan.seq):
         return torch.einsum("bsd,vd->bsv", h, w.to(h.dtype))
+    if not plan.vocab:
+        # a replicated head on the gathered rows: every rank computes the
+        # whole logits, whose gradient becomes a share
+        return tp_share(torch.einsum("bsd,vd->bsv", seq_gather(h),
+                                     w.to(h.dtype)))
     # vocab-parallel head: this rank's logits columns, gathered along vocab
     # in f32 (the cross entropy's dtype) for the loss, whose gradient each
     # rank slices back
-    return tp_gather_last(torch.einsum("bsd,vd->bsv", tp_copy(h),
+    return tp_gather_last(torch.einsum("bsd,vd->bsv", tp_enter(h),
                                        w.to(h.dtype)).float())
 
 
@@ -149,14 +165,18 @@ def sublayer_train(p, x, mixer: str, ffn: str, cfg: ModelConfig,
     if ffn != "none":
         h = rmsnorm(x, p["norm2"]["scale"], cfg.norm_eps)
         if ffn == "moe":
-            h, moe_aux = MOE.moe_apply(p["moe"], h, cfg)
+            h, moe_aux = MOE.moe_apply(p["moe"], h, cfg,
+                                       defer_combine=run.moe_defer_combine)
             aux = {k: aux[k] + moe_aux[k] for k in AUX_KEYS}
         else:
             plan = tp_train()
             if plan is not None and plan.mlp:
                 # column-parallel w1/w3, row-parallel w2 (Megatron)
-                h = tp_reduce(mlp_apply(p["mlp"], tp_copy(h), cfg.mlp_type))
+                h = tp_exit(mlp_apply(p["mlp"], tp_enter(h), cfg.mlp_type),
+                            partial=True)
             else:
+                # replicated: a position-wise block runs on the rows as
+                # they are (this rank's, with the sequence sharded)
                 h = mlp_apply(p["mlp"], h, cfg.mlp_type)
         x = x + h
     return x, aux
@@ -201,11 +221,20 @@ def backbone_train(params, h, cfg: ModelConfig, run: RunConfig):
 
 
 def forward_train(params, batch: dict, cfg: ModelConfig, run: RunConfig):
+    """(logits, aux).  Under a training TP plan with ``seq_parallel``
+    whose ranks divide the sequence, the residual stream between blocks
+    holds this rank's rows (Megatron-SP): the norms act on them, each
+    block enters on the gathered sequence, and the LM head gathers it
+    before the vocab-parallel product."""
     params = use_params(params, "root")
-    h = build_hidden(params, batch, cfg)
-    h, aux = backbone_train(params, h, cfg, run)
-    h = rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)
-    return unembed(params, h, cfg), aux
+    plan = tp_train()
+    seq = plan is not None and plan.seq_rows(hidden_len(batch))
+    with tp_train_scope(dataclasses.replace(plan, seq=True) if seq
+                        else plan):
+        h = build_hidden(params, batch, cfg)
+        h, aux = backbone_train(params, h, cfg, run)
+        h = rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)
+        return unembed(params, h, cfg), aux
 
 
 def softmax_xent(logits, labels, mask, group=None):

@@ -1,7 +1,6 @@
 """Mixture-of-Experts FFN — GShard-style grouped top-k dispatch with
 capacity, shared experts (qwen2-moe), router z-loss and load-balance loss;
-the port of the JAX package's ``models/moe.py`` without expert
-parallelism.
+the port of the JAX package's ``models/moe.py``.
 
 Tokens are processed in groups of ``moe.group_size`` so the one-hot
 dispatch/combine tensors stay O(group * E * capacity) instead of
@@ -13,6 +12,21 @@ too.
 
 The products are plain ``torch.einsum`` over ``(G, E, C, d)``, as the JAX
 version's are einsums outside any Pallas kernel.
+
+Under a training TP plan (``core.actshard.tp_train_scope``) that shards
+any of the block's weights, the block runs between points
+(``tp_enter``/``tp_exit``).  Routing, capacity and the aux losses are
+computed whole on every rank from the whole token rows.  With the
+experts on ``model`` (expert parallelism) a rank runs the dispatch and
+combine of its ``E/m`` experts, and the combine leaves a partial ``y``.
+Where the expert count does not divide, each expert's ``d_ff`` shards
+(TP-in-expert) and the expert outputs ``(G, E, C, d)`` are partial:
+they are summed over the ranks before the combine, or, under
+``run.moe_defer_combine``, the combine runs on the partial outputs and
+``y`` is summed after it.  The shared experts are column/row-parallel
+like a dense MLP.  Inside the points every gradient is a share
+(``core.actshard``): the router is a partial leaf, and the aux losses,
+whole on every rank, pass through ``tp_share``.
 """
 from __future__ import annotations
 
@@ -22,6 +36,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.actshard import (
+    tp_enter, tp_exit, tp_share, tp_sum, tp_train,
+)
 from repro_torch.models.mlp import mlp_apply
 
 f32 = torch.float32
@@ -40,8 +57,16 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig):
-    """x: (B, S, d) -> (y: (B, S, d), aux: dict of scalar losses)."""
+def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              defer_combine: bool = False):
+    """x: (B, S, d) -> (y: (B, S, d), aux: dict of scalar losses).
+    ``defer_combine`` (``run.moe_defer_combine``): under TP-in-expert,
+    sum the partial sums after the combine, on ``y``."""
+    plan = tp_train()
+    points = plan is not None and (plan.experts or plan.expert_ffn
+                                   or plan.shared or plan.seq)
+    if points:
+        x = tp_enter(x)
     moe = cfg.moe
     B, S, d = x.shape
     E, k = moe.num_experts, moe.top_k
@@ -90,7 +115,15 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig):
         counts = counts + torch.sum(oh, dim=1)
 
     # ---- expert compute (einsum over capacity slots) ----
-    ein = torch.einsum("gsec,gsd->gecd", dispatch, xt)             # (G,E,C,d)
+    ep = points and plan.experts
+    tpe = points and plan.expert_ffn
+    comb = combine.to(dtype)
+    disp = dispatch
+    if ep:                                  # this rank's E/m experts
+        n = p["w1"].shape[0]
+        disp = dispatch.narrow(2, plan.index * n, n)
+        comb = comb.narrow(2, plan.index * n, n)
+    ein = torch.einsum("gsec,gsd->gecd", disp, xt)                 # (G,E,C,d)
     h = torch.einsum("gecd,edf->gecf", ein, p["w1"].to(dtype))
     if cfg.mlp_type == "swiglu":
         h = F.silu(h) * torch.einsum("gecd,edf->gecf", ein,
@@ -101,17 +134,33 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig):
     else:
         h = torch.square(F.relu(h))
     eout = torch.einsum("gecf,efd->gecd", h, p["w2"].to(dtype))   # (G,E,C,d)
-    y = torch.einsum("gsec,gecd->gsd", combine.to(dtype), eout)
+    routed_partial = ep or (tpe and defer_combine)
+    if tpe and not defer_combine:
+        eout = tp_sum(eout)
+    y = torch.einsum("gsec,gecd->gsd", comb, eout)
 
+    # the routed and shared outputs, each partial (summed over the ranks
+    # at the exit) or whole; the parts of one kind share their exit
+    parts = {True: [], False: []}
+    parts[bool(routed_partial)].append(y)
     if moe.num_shared:
-        y = y + mlp_apply(p["shared"], xt, cfg.mlp_type)
+        parts[bool(points and plan.shared)].append(
+            mlp_apply(p["shared"], xt, cfg.mlp_type))
+    y = None
+    for partial, ys in parts.items():
+        if not ys:
+            continue
+        part = sum(ys[1:], ys[0]).reshape(T_pad, d)[:T].reshape(B, S, d)
+        if points:
+            part = tp_exit(part, partial)
+        y = part if y is None else y + part
 
-    y = y.reshape(T_pad, d)[:T]
-
+    if points:
+        balance_loss, z_loss = tp_share(balance_loss), tp_share(z_loss)
     aux = {
         "moe_balance_loss": balance_loss,
         "moe_z_loss": z_loss,
         "moe_overflow": 1.0 - torch.mean(
             dispatch.to(f32).sum(dim=(2, 3))) / k,
     }
-    return y.reshape(B, S, d), aux
+    return y, aux

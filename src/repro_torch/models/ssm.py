@@ -10,6 +10,12 @@ routes the scan through ``kernels.ops.ssd_scan`` (the CUDA kernel on the
 card).  Serving reaches no kernel, as in the JAX package: prefill runs the
 plain ``ssd_chunked`` (the cache needs its final state, which the kernel
 does not return) and decode is one recurrence step.
+
+Under training tensor parallelism (``core.actshard.tp_train_scope``) a
+rank whose plan shards the SSD heads runs its ``H/m`` heads: its columns
+of ``wz``/``wx``/``wdt``, all of ``B``/``C`` and the conv channels of
+both, a partial output projection and a gated norm whose sum of squares
+is summed over the ranks.
 """
 from __future__ import annotations
 
@@ -19,6 +25,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.actshard import (
+    tp_enter, tp_exit, tp_gather, tp_sum, tp_train,
+)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models.init import torch_dtype
@@ -26,9 +35,15 @@ from repro_torch.models.init import torch_dtype
 f32 = torch.float32
 
 
-def _rmsnorm_gated(y, z, scale, eps):
+def _rmsnorm_gated(y, z, scale, eps, width: Optional[int] = None):
+    """``width``: the whole inner dim, of which ``y`` holds this rank's
+    columns; the mean square is then the ranks' summed squares over it."""
     y = y * F.silu(z.to(f32)).to(y.dtype)
-    var = torch.mean(torch.square(y.to(f32)), dim=-1, keepdim=True)
+    if width is None:
+        var = torch.mean(torch.square(y.to(f32)), dim=-1, keepdim=True)
+    else:
+        var = tp_sum(torch.sum(torch.square(y.to(f32)), dim=-1,
+                               keepdim=True)) / width
     y = y.to(f32) * torch.rsqrt(var + eps)
     return (y * scale.to(f32)).to(z.dtype)
 
@@ -92,23 +107,49 @@ def _proj_split(p: dict, x: torch.Tensor, cfg: ModelConfig):
     return z, u, dt_raw
 
 
-def _post_conv_split(u, cfg: ModelConfig):
-    di = cfg.ssm.d_inner(cfg.d_model)
+def _post_conv_split(u, cfg: ModelConfig, di: Optional[int] = None):
+    """(xin, B, C) of the conv output; ``di``: the width of ``xin`` in
+    ``u`` (default the whole inner dim)."""
+    di = cfg.ssm.d_inner(cfg.d_model) if di is None else di
     N = cfg.ssm.state
     return u[..., :di], u[..., di:di + N], u[..., di + N:]
 
 
 def ssm_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
               use_kernels: bool = False) -> torch.Tensor:
-    """(B,S,d) -> (B,S,d), full-sequence (training core)."""
+    """(B,S,d) -> (B,S,d), full-sequence (training core).  Under a
+    training TP plan that shards the inner dim the block runs between
+    points (``core.actshard.tp_enter``/``tp_exit``): on its ``H/m`` heads
+    where the heads shard; whole, from the gathered inner-dim weights,
+    where they do not (a rank's columns would not fall on whole heads)."""
+    plan = tp_train()
+    points = plan is not None and (plan.ssm_inner or plan.seq)
+    sharded = points and plan.ssm
+    if points:
+        x = tp_enter(x)
+        if plan.ssm_inner and not plan.ssm:
+            p = dict(p, wz=tp_gather(p["wz"], 1), wx=tp_gather(p["wx"], 1),
+                     norm_scale=tp_gather(p["norm_scale"], 0),
+                     wo=tp_gather(p["wo"], 0))
     B, S, _ = x.shape
     ssm = cfg.ssm
-    H = ssm.num_heads(cfg.d_model)
+    H = p["A_log"].shape[0]                  # this rank's heads
     P = ssm.head_dim
+    di = H * P
+    conv_w, conv_b = p["conv_w"], p["conv_b"]
+    if sharded:
+        # the conv channels are [xin, B, C]: this rank's xin columns and
+        # every B and C channel
+        whole = ssm.d_inner(cfg.d_model)
+        idx = torch.cat([
+            torch.arange(plan.index * di, (plan.index + 1) * di),
+            torch.arange(whole, whole + 2 * ssm.state)]).to(conv_w.device)
+        conv_w, conv_b = conv_w.index_select(1, idx), conv_b.index_select(
+            0, idx)
     z, u, dt_raw = _proj_split(p, x, cfg)
-    u, _ = _causal_conv(u, p["conv_w"], p["conv_b"])
+    u, _ = _causal_conv(u, conv_w, conv_b)
     u = F.silu(u)
-    xin, Bm, Cm = _post_conv_split(u, cfg)
+    xin, Bm, Cm = _post_conv_split(u, cfg, di)
     dt = F.softplus(dt_raw.to(f32) + p["dt_bias"].to(f32))
     A = -torch.exp(p["A_log"].to(f32))
     xh = xin.reshape(B, S, H, P)
@@ -118,8 +159,10 @@ def ssm_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
         y, _ = ssd_chunked(xh, dt, A, Bm, Cm, ssm.chunk)
     y = y + xh * p["D"].to(y.dtype)[None, None, :, None]
     y = y.reshape(B, S, H * P)
-    y = _rmsnorm_gated(y, z, p["norm_scale"], cfg.norm_eps)
-    return y @ p["wo"].to(y.dtype)
+    y = _rmsnorm_gated(y, z, p["norm_scale"], cfg.norm_eps,
+                       width=ssm.d_inner(cfg.d_model) if sharded else None)
+    out = y @ p["wo"].to(y.dtype)
+    return tp_exit(out, partial=sharded) if points else out
 
 
 def init_ssm_cache(cfg: ModelConfig, batch: int, n_groups: int,

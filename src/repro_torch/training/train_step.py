@@ -20,34 +20,12 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.actshard import param_use_scope, tp_train_scope
 from repro_torch.core.zero import Layout
-from repro_torch.models.model import AUX_KEYS, loss_fn
+from repro_torch.models.model import AUX_KEYS, hidden_len, loss_fn
 from repro_torch.optim.adamw import OptimizerConfig, adamw_update
 from repro_torch.tree import leaves, unflatten
 
 METRIC_KEYS = ("loss", "xent", "moe_balance_loss", "moe_z_loss",
                "grad_norm", "lr")
-
-
-def check_supported(cfg: ModelConfig, run: RunConfig, mesh) -> None:
-    """Refuse what the port does not shard yet (ROADMAP A4c): on more than
-    one ``model`` rank, sequence parallelism, deferred MoE combines, and
-    tensor parallelism of SSM, hybrid and MoE configs."""
-    from repro_torch.core.parallelism import get_strategy
-
-    if mesh.shape.get("model", 1) <= 1:
-        return
-    for knob in ("seq_parallel", "moe_defer_combine"):
-        if getattr(run, knob):
-            raise ValueError(
-                f"{knob} on a mesh of {mesh.shape['model']} model ranks is "
-                "a layout the port does not write out yet (ROADMAP A4c)")
-    if get_strategy(run.strategy).tp and (cfg.ssm is not None
-                                          or cfg.moe is not None):
-        raise ValueError(
-            f"strategy {run.strategy!r} on {mesh.shape['model']} model "
-            f"ranks would shard {cfg.name}'s SSM heads or experts, whose "
-            "reduction points the port does not write yet (ROADMAP A4c); "
-            "use dp or fsdp")
 
 
 def init_opt_state_sharded(params, opt: OptimizerConfig, layout: Layout):
@@ -71,7 +49,6 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, mesh,
     summed into an f32 accumulator (bf16 under ``grad_reduce_bf16``) in
     the ZeRO gradient layout and, like the metrics, averaged over the
     microbatches."""
-    check_supported(cfg, run, mesh)
     layout = Layout(cfg, mesh, run)
     n = run.microbatches
     # JAX casts in the microbatch loop only
@@ -108,7 +85,8 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, mesh,
             # gives
             grads = torch.autograd.grad(loss, xs, allow_unused=True,
                                         materialize_grads=True)
-        grads = layout.reduce_grads(list(grads), dtype=red_dtype)
+        grads = layout.reduce_grads(list(grads), dtype=red_dtype,
+                                    seq=layout.seq_rows(hidden_len(batch)))
         if data_group is None:
             return grads, {k: v.detach() for k, v in metrics.items()}
         # each rank's metrics are its share of the global ones
@@ -155,4 +133,8 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, mesh,
         return params, opt_state, metrics
 
     step.layout = layout
+    # one batch's gradients as the step reduces them (ZeRO gradient
+    # layout) and its metrics, without an update
+    step.grads = lambda params, batch: grads_of(
+        params, batch, next(iter(batch.values())).shape[0])
     return step

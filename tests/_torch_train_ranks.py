@@ -76,9 +76,10 @@ def _meshes(world: int):
             for s in shapes}
 
 
-def _train(cfg, mesh, run, params_np, batch_list):
-    """``STEPS`` steps of the train step from whole numpy weights; rank 0
-    returns the metrics of every step and the whole final parameters."""
+def _train(cfg, mesh, run, params_np, batch_list, opt=OPT):
+    """``STEPS`` steps of the train step from whole numpy weights (AdamW
+    with ``opt``); rank 0 returns the metrics of every step and the whole
+    final parameters."""
     from repro_torch.optim import OptimizerConfig
     from repro_torch.training.train_step import (
         init_opt_state_sharded, make_train_step,
@@ -86,7 +87,7 @@ def _train(cfg, mesh, run, params_np, batch_list):
     from repro_torch.tree import leaves
     from repro_torch.weights import params_from_jax
 
-    opt = OptimizerConfig(**OPT)
+    opt = OptimizerConfig(**opt)
     step = make_train_step(cfg, run, mesh, opt)
     lay = step.layout
     params = lay.shard(params_from_jax(params_np), "param")

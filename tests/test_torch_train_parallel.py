@@ -23,8 +23,11 @@ host devices runs ``fsdp_tp`` ZeRO 3 on a (2, 2) mesh.
 * ``train --data 2 --model 2`` (its ranks' function) against the one-cell
   CLI;
 * an fsdp_tp checkpoint restored into the one-rank port trainer and into
-  the JAX ``Trainer``, whose next losses are equal;
-* the refusals of ROADMAP A4c.
+  the JAX ``Trainer``, whose next losses are equal.
+
+Tensor parallelism of the SSM, hybrid and MoE families and the
+``seq_parallel``/``moe_defer_combine`` layouts are
+``test_torch_train_tp_families.py``'s.
 
 Tolerances: f32 metrics (loss, xent, aux losses, gradient norm, lr) 1e-5
 relative; final parameters within 1e-4 of the largest magnitude of the
@@ -65,11 +68,11 @@ from repro.training import Trainer as JaxTrainer
 from repro.training import TrainerConfig as JaxTrainerConfig
 from repro.training import make_train_step as jax_make_train_step
 from repro_torch.cluster.meshbridge import DeviceMesh, launch_on_mesh
-from repro_torch.configs import InputShape, RunConfig, get_reduced_config
+from repro_torch.configs import InputShape, RunConfig
 from repro_torch.launch import train as tlaunch
 from repro_torch.launch.mesh import default_backend, launch_ranks
 from repro_torch.optim import OptimizerConfig
-from repro_torch.training import Trainer, TrainerConfig, make_train_step
+from repro_torch.training import Trainer, TrainerConfig
 from repro_torch.training.train_step import METRIC_KEYS
 
 import _torch_train_ranks as R
@@ -363,32 +366,6 @@ def test_fsdp_tp_checkpoint_restores_in_port_and_jax(runs, cpu_mesh):
                                rtol=F32["rtol"])
 
 
-class _Mesh:
-    def __init__(self, data, model):
-        self.shape = {"data": data, "model": model}
-        self.axis_names = ("data", "model")
-
-
-@pytest.mark.parametrize("arch,kw", [
-    ("mamba2-780m", dict(strategy="tp")),
-    ("jamba-1.5-large-398b", dict(strategy="fsdp_tp")),
-    ("qwen2-moe-a2.7b", dict(strategy="tp")),
-    ("stablelm-3b", dict(strategy="dp", seq_parallel=True)),
-    ("stablelm-3b", dict(strategy="fsdp", moe_defer_combine=True))])
-def test_refusals_name_roadmap_a4c(arch, kw):
-    """Tensor parallelism of SSM, hybrid and MoE configs, and the
-    multi-rank seq_parallel / moe_defer_combine layouts, raise on more
-    than one model rank; on one model rank they train (dp and fsdp)."""
-    cfg = get_reduced_config(arch)
-    with pytest.raises(ValueError, match="ROADMAP A4c"):
-        make_train_step(cfg, RunConfig(**kw), _Mesh(1, 2),
-                        OptimizerConfig())
-    from repro_torch.training.train_step import check_supported
-    check_supported(cfg, RunConfig(**kw), _Mesh(2, 1))
-    if kw["strategy"] == "tp":
-        check_supported(cfg, RunConfig(strategy="fsdp"), _Mesh(2, 2))
-
-
 def test_cell_devices_and_backends():
     """The CLI names one device a cell: ``--device`` repeated, or
     ``--devices``; NCCL only where every cell has a card of its own."""
@@ -409,7 +386,9 @@ def test_cell_devices_and_backends():
 
 def test_chip_smoke_train_parallel_phase_on_cpu(capsys):
     """``chip_smoke.py``'s train-parallel phase at reduced size on the CPU:
-    its five runs and six f32 identity runs pass their gates (the memory
+    its seven runs (mamba2-780m and qwen2-moe-a2.7b under tp among them)
+    and eight f32 identity runs (mamba2-780m under tp and stablelm-3b
+    under tp with seq_parallel among them) pass their gates (the memory
     and launch gates hold on the card only)."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
@@ -422,7 +401,11 @@ def test_chip_smoke_train_parallel_phase_on_cpu(capsys):
     assert all(rel <= 1e-5 and grel <= 1e-5 and perr <= 1e-4
                and upd <= chip_smoke.PAR_UPDATE_TOL
                for _, rel, grel, perr, upd in out["identity"])
-    assert "f32 identity fsdp_tp z3 2x2" in capsys.readouterr().out
+    text = capsys.readouterr().out
+    for label in ("fsdp_tp z3 2x2", "mamba2-780m tp 1x2",
+                  "tp seq_parallel 1x2"):
+        assert f"f32 identity {label}" in text
+    assert "  qwen2-moe-a2.7b tp 1x2: losses" in text
 
 
 def test_seq_parallel_one_rank_matches_jax():
