@@ -136,7 +136,23 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
    largest magnitude, a rank's peak above its reckoned bytes + 1 GiB, or
    an attention (dense) or scan (SSM) launch count other than two a
    layer a step on a rank.
-14. summary — the kernels line, then the device line last.
+14. dry run — the production dry run (``repro_torch.launch.dryrun``:
+   one rank's program on ``meta`` tensors in a fake world of the mesh's
+   size, the plain route, no card) held to phase 13's card runs: each
+   bf16 run's collectives by kind and the bytes handed over must equal
+   phase 13's exactly, and its peak (rank 0) and each one-rank run's
+   must lie within 10% of the measured one (printed beside
+   ``reckon_train``'s limit); the one-rank runs' counted flops, TF/s
+   and MFU (6ND over the data sheet's 989e12 bf16 flop/s); the TP
+   decode at 1 x 2 must reduce ``psums_per_token`` times a token and a
+   chunk of 8 as phase 12 counted.  Then the production subset (16 x 16
+   ranks; stablelm-3b x the four shapes, mamba2-780m, qwen2-moe-a2.7b
+   and jamba-1.5-large-398b at train_4k, stablelm-3b train_4k on 2 x 16
+   x 16), run on the CPU in two processes started after the build,
+   beside the card's phases: each combination's seconds, its record
+   under ``results/dryrun_torch`` and ``benchmarks/bench_roofline.py``'s
+   table (data-sheet peaks: a reckoning, not a card speed).
+15. summary — the kernels line, then the device line last.
 
 Exits non-zero on any failure, and when no card is present.
 """
@@ -2305,8 +2321,12 @@ def tp_phase(args, device="cuda", reduced=False) -> dict:
         f"from tp=1 (each within the rounding, above): {flips}; ranks' "
         f"launch {launch_s:.1f} s, phase "
         f"{time.perf_counter() - t_phase:.1f} s")
+    c = ranks[0]["runs"][0]["chunk"]
     return {"runs": runs, "identity": {"same": same, "total": same,
-                                       "flips": flips}}
+                                       "flips": flips},
+            "chunk": {"counts": c["counts"], "allreduces": c["allreduces"],
+                      "per_token": ranks[0]["runs"][0]["per_token"],
+                      "tokens": chunk}}
 
 
 # ------------------------------------------------------- train parallel ----
@@ -2351,26 +2371,25 @@ MOE_LAYERS = 4
 #: H100, past ``PAR_PARAM_TOL``, with the update within 2.5e-4 L2.)
 PAR_LOSS_TOL, PAR_PARAM_TOL, PAR_UPDATE_TOL, PAR_BF16_TOL = \
     1e-5, 1e-4, 1e-3, 0.05
-_COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter")
-
-
-def _tensor_bytes(x) -> int:
-    if isinstance(x, torch.Tensor):
-        return x.numel() * x.element_size()
-    if isinstance(x, (list, tuple)):
-        return sum(_tensor_bytes(t) for t in x)
-    return 0
+#: the collectives counted: every one the dry run records
+#: (``repro_torch.launch.dryrun.COLLECTIVES``)
+_COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor",
+                "reduce_scatter", "reduce_scatter_tensor", "all_to_all",
+                "all_to_all_single", "batch_isend_irecv")
 
 
 @contextlib.contextmanager
 def timed_collectives(stats: dict, device):
     """Count and time, on the host, every ``torch.distributed`` collective
-    the training path calls inside the block, and sum the bytes of the
-    tensors each hands over (``stats["bytes"]``: the input, or the list
-    of inputs, of each call): the device is synchronised before and after
-    each, so a reading holds the collective alone (gloo copies CUDA
-    tensors through the host and waits for them anyway)."""
+    of ``_COLLECTIVES`` the training path calls inside the block, and sum
+    the bytes of the tensors each hands over (``stats["bytes"]``: the
+    input, or the list of inputs, of each call, ``launch.dryrun.
+    handed_bytes``): the device is synchronised before and after each, so
+    a reading holds the collective alone (gloo copies CUDA tensors
+    through the host and waits for them anyway)."""
     import torch.distributed as dist
+
+    from repro_torch.launch.dryrun import handed_bytes
 
     orig = {name: getattr(dist, name) for name in _COLLECTIVES}
 
@@ -2382,8 +2401,7 @@ def timed_collectives(stats: dict, device):
             sync(device)
             stats["s"] += time.perf_counter() - t0
             stats[name] += 1
-            stats["bytes"] += _tensor_bytes(a[1] if name != "all_reduce"
-                                            else a[0])
+            stats["bytes"] += handed_bytes(name, a)
             return out
         return call
 
@@ -2528,7 +2546,9 @@ def par_run(trainer, steps: int, device) -> dict:
             "grad_norms": [h["grad_norm"] for h in trainer.history],
             "step_s": statistics.median(h["sec"] for h in kept),
             "collective_s": stats["s"] / len(kept),
-            "collectives": {n: stats[n] // len(kept) for n in _COLLECTIVES},
+            "collectives": {n: stats[n] // len(kept) for n in _COLLECTIVES
+                            if stats[n]},
+            "collective_bytes": stats["bytes"] // len(kept),
             "collective_gib": stats["bytes"] / len(kept) / 2**30,
             "coll_share": stats["s"] / wall,
             "launches": ops.launch_counts(),
@@ -2809,10 +2829,15 @@ def train_parallel_phase(args, device="cuda", reduced=False) -> dict:
                     f"train parallel {label}: losses {ls} and gradient "
                     f"norms {per[0]['grad_norms']} against one rank's "
                     f"{ref['losses']} and {ref['grad_norms']}")
+            rk = per[0]["reckon"]
             runs.append({"label": label, "step_s": per[0]["step_s"],
                          "one_rank_step_s": ref["step_s"],
                          "coll_share": per[0]["coll_share"],
                          "collective_gib": per[0]["collective_gib"],
+                         "collectives": per[0]["collectives"],
+                         "collective_bytes": per[0]["collective_bytes"],
+                         "limit_gib": (rk["shard"] + rk["act"]) / 2**30
+                         + 1,
                          "peak_gib": [r["peak_gib"] for r in per],
                          "launches": {n: sum(r["launches"][n] for r in per)
                                       for n in per[0]["launches"]}})
@@ -2846,7 +2871,264 @@ def train_parallel_phase(args, device="cuda", reduced=False) -> dict:
                                          f"{x['label']}: beyond tolerance")
     log(f"  ranks' launches {t4:.1f} s (2 x 2) and {t2:.1f} s (2 ranks), "
         f"phase {time.perf_counter() - t_phase:.1f} s")
-    return {"runs": runs, "identity": ident}
+    one_rank = {arch: {"step_s": r["step_s"], "peak_gib": r["peak_gib"]}
+                for arch, r in refs.items()}
+    return {"runs": runs, "identity": ident, "one_rank": one_rank}
+
+
+# -------------------------------------------------------------- dry run ----
+
+#: the production subset of the dry-run phase: (arch, shape, mesh), each a
+#: rank of the production mesh on ``meta`` (``launch.dryrun.run_one``)
+DRYRUN_SUBSET = (
+    ("stablelm-3b", "train_4k", "single"),
+    ("stablelm-3b", "prefill_32k", "single"),
+    ("stablelm-3b", "decode_32k", "single"),
+    ("stablelm-3b", "long_500k", "single"),
+    ("mamba2-780m", "train_4k", "single"),
+    ("qwen2-moe-a2.7b", "train_4k", "single"),
+    ("jamba-1.5-large-398b", "train_4k", "single"),
+    ("stablelm-3b", "train_4k", "multi"))
+#: where the subset's records go (``results/`` is not committed)
+DRYRUN_DIR = "results/dryrun_torch"
+#: a dry-run peak against the measured one: at most this share apart
+DRYRUN_PEAK_TOL = 0.10
+
+
+def dryrun_subset(combos, outdir: str, reduced: bool = False) -> list:
+    """Dry-run each (arch, shape, mesh) of ``combos`` as rank 0 of the
+    production mesh, writing its record to ``outdir``: ``[(combo,
+    seconds, record or the error)]``.  On ``meta`` only: no card is
+    touched, so the card's phases may run beside it in another
+    process."""
+    from repro_torch.launch import dryrun
+
+    torch.set_num_threads(1)
+    out = []
+    for arch, shape, mesh in combos:
+        t0 = time.perf_counter()
+        try:
+            rec = dryrun.run_one(arch, shape, mesh, outdir, reduced=reduced)
+        except Exception as e:         # noqa: BLE001 — reported, then fatal
+            rec = f"{type(e).__name__}: {e}"
+        out.append(((arch, shape, mesh), time.perf_counter() - t0, rec))
+    return out
+
+
+def _subset_main(combos, outdir, reduced, queue):
+    queue.put(dryrun_subset(combos, outdir, reduced))
+
+
+def start_dryrun_subset(outdir: str = DRYRUN_DIR, combos=DRYRUN_SUBSET,
+                        reduced: bool = False):
+    """Start the production subset in two processes of their own
+    (``spawn``; CPU only), jamba-1.5-large-398b's step, the longest,
+    alone in one, so that it runs beside the card's phases.  Returns
+    ``(processes, queue)`` for :func:`dryrun_phase`."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    long = [c for c in combos if c[0] == "jamba-1.5-large-398b"]
+    rest = [c for c in combos if c not in long]
+    groups = [g for g in (long, rest) if g]
+    procs = [ctx.Process(target=_subset_main,
+                         args=(g, outdir, reduced, queue), daemon=True)
+             for g in groups]
+    for p in procs:
+        p.start()
+    return procs, queue
+
+
+def _collect_subset(started, timeout: float) -> list:
+    """The results of :func:`start_dryrun_subset`'s processes, which are
+    then stopped; a process that dies without one fails the phase."""
+    import queue as queue_mod
+
+    procs, queue = started
+    out, got, deadline = [], 0, time.perf_counter() + timeout
+    try:
+        while got < len(procs):
+            try:
+                out.extend(queue.get(timeout=1))
+                got += 1
+                continue
+            except queue_mod.Empty:
+                pass
+            dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+            if dead or time.perf_counter() > deadline:
+                raise AssertionError(
+                    f"dry run: the production subset's processes ended "
+                    f"{dead} without a result" if dead else
+                    f"dry run: the production subset did not finish "
+                    f"within {timeout:.0f} s")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+    return out
+
+
+def dryrun_phase(par, tp, args, device="cuda", reduced=False,
+                 outdir=DRYRUN_DIR, runs=TRAIN_PAR_RUNS,
+                 started=None, subset=DRYRUN_SUBSET) -> dict:
+    """The production dry run (``repro_torch.launch.dryrun``: one rank's
+    program on ``meta`` in a fake world) held to the card's runs.
+
+    * Census: each of ``runs`` (phase 13's, ``par["runs"]`` by label) on
+      the same config, mesh, strategy, ZeRO stage and ``args["batch"]`` x
+      ``args["seq_len"]`` tokens (bf16 compute, f32 params, the plain
+      route the dry run counts): its collectives by kind and the bytes
+      handed over must equal phase 13's exactly; its peak (rank 0's) is
+      printed beside the measured one and the reckoned limit, and on the
+      card must lie within ``DRYRUN_PEAK_TOL`` of it.
+    * The one-rank runs (``par["one_rank"]``): peak against the measured
+      one (the same gate), counted flops a step, and the measured step's
+      TF/s and MFU (6 N D model flops / step seconds / the data sheet's
+      989e12 bf16 flop/s).
+    * Decode census: the serve step of full-width stablelm-3b (reduced:
+      the reduced config) under tp on 1 x 2, one token and a fused chunk
+      of ``args["decode_chunk"]``, must reduce at attention-out and
+      MLP-down ``psums_per_token`` times a token (``serving.tp``), as
+      phase 12 counted (``tp["chunk"]``, where given); the training
+      layout's vocab-parallel embedding adds one all-reduce and its head
+      one all-gather a token.
+    * The production subset (``subset``; reduced configs when
+      ``reduced``), each combination timed, its record written to
+      ``outdir`` and the roofline table printed: from ``started``
+      (:func:`start_dryrun_subset`, run beside the card's phases) or
+      here."""
+    import dataclasses as dc
+
+    from repro_torch.configs import InputShape, RunConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import virtual_mesh, virtual_world
+    from repro_torch.serving import serve_step as ss
+    from repro_torch.serving.tp import plan_tp
+
+    t_phase = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    cfgs, _ = _par_cfgs(reduced)
+    S, B = args["seq_len"], args["batch"]
+    shape = InputShape("par", S, B, "train")
+    measured = {r["label"]: r for r in par["runs"]}
+
+    def peak_line(what, dry, meas, limit=None):
+        gap = (dry - meas) / meas if math.isfinite(meas) else float("nan")
+        lim = "" if limit is None else f", reckoned limit {limit:.2f} GiB"
+        log(f"    peak: dry run {dry:.2f} GiB, measured {meas:.2f} GiB "
+            f"({gap:+.1%}){lim}")
+        if on_card and not abs(gap) <= DRYRUN_PEAK_TOL:
+            raise AssertionError(f"dry run {what}: peak {dry:.2f} GiB, "
+                                 f"measured {meas:.2f} GiB")
+
+    census = 0
+    for label, arch, mesh_shape, strategy, zero, knobs in runs:
+        run = RunConfig(strategy=strategy, zero_stage=zero, remat="layer",
+                        **knobs)
+        with virtual_world(0, mesh_shape[0] * mesh_shape[1]):
+            got = dryrun.dry_run(cfgs[arch], run, shape,
+                                 virtual_mesh(mesh_shape))
+        want = measured[label]
+        log(f"  {label}: dry run {got['calls']} a step, "
+            f"{got['handed_bytes'] / 2**30:.3f} GiB handed over; phase 13 "
+            f"{want['collectives']}, "
+            f"{want['collective_bytes'] / 2**30:.3f} GiB; "
+            f"{got['flops']:.4g} flops a step (rank 0)")
+        if got["calls"] != want["collectives"] or \
+                got["handed_bytes"] != want["collective_bytes"]:
+            raise AssertionError(
+                f"dry run {label}: census {got['calls']}, "
+                f"{got['handed_bytes']} bytes; phase 13 counted "
+                f"{want['collectives']}, {want['collective_bytes']} bytes")
+        census += 1
+        peaks = want["peak_gib"]
+        meas = peaks[0] if isinstance(peaks, list) else peaks
+        peak_line(label, got["peak_bytes"] / 2**30, meas, want["limit_gib"])
+    for arch, one in par["one_rank"].items():
+        cfg = cfgs[arch]
+        with virtual_world(0, 1):
+            got = dryrun.dry_run(cfg, RunConfig(remat="layer"), shape,
+                                 virtual_mesh((1, 1)))
+        model = dryrun.model_flops_global(cfg, shape)
+        log(f"  one rank, {arch} ({cfg.num_layers} layers): dry run "
+            f"{got['flops']:.4g} flops a step (model flops 6ND "
+            f"{model:.4g}); measured {one['step_s']:.3f} s/step: "
+            f"{got['flops'] / one['step_s'] / 1e12:.1f} TF/s counted, "
+            f"{model / one['step_s'] / 1e12:.1f} TF/s model, MFU "
+            f"{model / one['step_s'] / 989e12:.2%} of the data sheet's "
+            "989e12 bf16 flop/s")
+        peak_line(f"one rank {arch}", got["peak_bytes"] / 2**30,
+                  one["peak_gib"])
+    # ---- decode census: the TP phase's dense decode at 1 x 2
+    cfg = cfgs["stablelm-3b"]
+    chunk = args["decode_chunk"]
+    run = RunConfig(strategy="tp", zero_stage=3)
+    dshape = InputShape("d", args["cache_len"], args["slots"], "decode")
+    with virtual_world(0, 2):
+        mesh = virtual_mesh((1, 2))
+        per_token = plan_tp(cfg, mesh).psums_per_token(cfg)
+        got = {}
+        for n, make, lower in ((1, ss.make_serve_step,
+                                ss.serve_step_lowering_args),
+                               (chunk, ss.make_fused_serve_step,
+                                ss.fused_serve_step_lowering_args)):
+            counts = {}
+            kw = {} if n == 1 else {"num_tokens": n}
+            step = make(cfg, run, mesh, dshape.global_batch,
+                        dshape.seq_len, counts=counts, **kw)
+            got[n] = (counts, dryrun.count_step(
+                step, lower(cfg, run, mesh, dshape))["calls"])
+        vocab = step.layout.plan.vocab
+    for n, (counts, calls) in got.items():
+        want = {k: v * n for k, v in per_token.items()}
+        extra = {"all_reduce": n, "all_gather": n} if vocab else {}
+        total = {k: v for k, v in {
+            "all_reduce": sum(want.values()) + extra.get("all_reduce", 0),
+            "all_gather": extra.get("all_gather", 0)}.items() if v}
+        log(f"  decode, tp 1 x 2, {n} token step(s): reductions {counts} "
+            f"(serving TP plan {want}"
+            + ("" if tp is None else f"; phase 12 counted "
+               f"{tp['chunk']['counts']} in a chunk of "
+               f"{tp['chunk']['tokens']}")
+            + f"); collectives {calls} (the vocab-parallel embedding and "
+            f"head add {extra} under the training layout)")
+        if counts != want or calls != total:
+            raise AssertionError(f"dry run decode: {counts}, {calls}; "
+                                 f"want {want}, {total}")
+        if tp is not None and n == tp["chunk"]["tokens"] and \
+                counts != tp["chunk"]["counts"]:
+            raise AssertionError(f"dry run decode: {counts} against phase "
+                                 f"12's {tp['chunk']['counts']}")
+    # ---- the production subset
+    if started is None:
+        subset = dryrun_subset(subset, outdir, reduced)
+    else:
+        subset = _collect_subset(started, timeout=900)
+    for (arch, sname, mesh), secs, rec in subset:
+        if isinstance(rec, str):
+            raise AssertionError(f"dry run {arch} x {sname} x {mesh}: {rec}")
+        r, m = rec["roofline"], rec["memory"]
+        log(f"  {arch} x {sname} x {mesh}: {secs:.1f} s; "
+            f"{rec['cost']['flops_per_device']:.4g} flops, "
+            f"{rec['cost']['hbm_bytes_per_device'] / 2**30:.1f} GiB moved, "
+            f"{rec['cost']['link_bytes_per_device'] / 2**30:.2f} GiB over "
+            f"links a rank; peak {m['peak_bytes'] / 2**30:.2f} GiB; "
+            f"C {r['compute_s']:.3g} s, M {r['memory_s']:.3g} s, N "
+            f"{r['collective_s']:.3g} s -> {r['bottleneck']} (data-sheet "
+            "peaks)")
+    root = str(Path(__file__).resolve().parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from benchmarks import bench_roofline
+    kept, bench_roofline.RESULTS = bench_roofline.RESULTS, outdir
+    try:
+        log(bench_roofline.table())
+    finally:
+        bench_roofline.RESULTS = kept
+    log(f"  phase {time.perf_counter() - t_phase:.1f} s")
+    return {"census": census, "subset": [c for c, _, _ in subset]}
 
 
 # -------------------------------------------------------------- cluster ----
@@ -3059,14 +3341,17 @@ def cluster_phase(tcfg, targs, scfg, sargs, reference, devices=None) -> dict:
 
 # ----------------------------------------------------------------- main ----
 
+#: phase 13's shape and steps: one step a bf16 run and two an f32
+#: identity run, no warm-up: gloo moves CUDA tensors through the host at
+#: 0.2-1 GiB/s (scripts/train_collectives.py), a parallel step takes 10-40
+#: s, and three a run put the script past half its time limit
+PAR_ARGS = dict(seq_len=1024, batch=4, steps=1, f32_steps=2)
+
+
 def run_train_parallel(tcfg, cfg, at) -> dict:
     """Phase 13's header and run on the card."""
-    # one step a bf16 run and two an f32 identity run, no warm-up: gloo
-    # moves CUDA tensors through the host at 0.2-1 GiB/s
-    # (scripts/train_collectives.py), a parallel step takes 10-40 s, and
-    # three a run put the script past half its time limit
-    pargs = dict(seq_len=1024, batch=4, steps=1, f32_steps=2)
-    log(f"[13/14] {at()}: train parallel: full-width {cfg.name} (fsdp_tp "
+    pargs = PAR_ARGS
+    log(f"[13/15] {at()}: train parallel: full-width {cfg.name} (fsdp_tp "
         f"ZeRO 3 on 2 x 2 ranks, tp on 1 x 2, fsdp ZeRO 3 on 2 x 1), "
         f"{tcfg.name} (dp ZeRO 1 and 2 on 2 x 1, tp on 1 x 2) and "
         f"qwen2-moe-a2.7b at full width, {MOE_LAYERS} layers (one rank, "
@@ -3078,6 +3363,18 @@ def run_train_parallel(tcfg, cfg, at) -> dict:
     return train_parallel_phase(pargs)
 
 
+def run_dryrun(tpar, tp, args, at, started) -> dict:
+    """Phase 14's header and run, after phase 13 in the same process."""
+    log(f"[14/15] {at()}: dry run: each train-parallel run and one-rank "
+        f"run of phase 13 on meta in a fake world (the plain route, bf16 "
+        f"compute, {PAR_ARGS['batch']} x {PAR_ARGS['seq_len']} tokens), "
+        f"census exact and peaks within {DRYRUN_PEAK_TOL:.0%} of phase "
+        f"13's; the TP decode at 1 x 2; the production subset "
+        f"({len(DRYRUN_SUBSET)} combinations, run beside the card's "
+        "phases)")
+    return dryrun_phase(tpar, tp, dict(PAR_ARGS, **args), started=started)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -3086,6 +3383,7 @@ def main(argv=None) -> int:
                         "stop; prints no result line")
     parser.add_argument("--train-parallel-only", action="store_true",
                         help="build, then run the train-parallel phase "
+                        "and the dry-run phase (which reads its numbers) "
                         "alone and stop; prints no result line")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -3098,8 +3396,6 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build
-    from repro_torch.models import init_params
-    from repro_torch.models.model import cast_for_compute
 
     resolve_device("cuda")                 # pins TF32 off for f32 products
     t_start = time.perf_counter()
@@ -3108,12 +3404,12 @@ def main(argv=None) -> int:
         """Seconds since the start, for the phase headers."""
         return f"at {time.perf_counter() - t_start:.1f} s"
 
-    log(f"[1/14] device: {smi} | torch {torch.__version__} cuda "
+    log(f"[1/15] device: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     build.build_all(verbose=True)
-    log(f"[2/14] build: kernels built in {time.perf_counter() - t0:.1f} s "
+    log(f"[2/15] build: kernels built in {time.perf_counter() - t0:.1f} s "
         f"({build.BUILD_ROOT / build.source_hash()})")
 
     cfg = get_config("stablelm-3b")
@@ -3121,12 +3417,36 @@ def main(argv=None) -> int:
     targs = dict(batch=4, microbatches=2, seq_len=2048, steps=4)
     shape = dict(H=cfg.num_heads, K=cfg.num_kv_heads, Dh=cfg.head_dim,
                  slots=4, cache_len=512, prefill_len=128)
+    started = None
+    if not opts.kernels_only:
+        # the dry run's production subset runs on meta, beside the card
+        started = start_dryrun_subset()
+    try:
+        return _phases(opts, smi, cfg, tcfg, targs, shape, at, t_start,
+                       started)
+    finally:
+        if started is not None:
+            for p in started[0]:
+                if p.is_alive():
+                    p.terminate()
+                p.join()
+
+
+def _phases(opts, smi, cfg, tcfg, targs, shape, at, t_start,
+            started) -> int:
+    """Phases 3-15 of :func:`main`."""
+    from repro_torch.models import init_params
+    from repro_torch.models.model import cast_for_compute
+
+    dargs = dict(slots=shape["slots"], cache_len=shape["cache_len"],
+                 decode_chunk=8)
     if opts.train_parallel_only:
-        run_train_parallel(tcfg, cfg, at)
-        log(f"train parallel only: stopped after the phase "
-            f"({time.perf_counter() - t_start:.1f} s)")
+        tpar = run_train_parallel(tcfg, cfg, at)
+        run_dryrun(tpar, None, dargs, at, started)
+        log(f"train parallel only: stopped after the train-parallel and "
+            f"dry-run phases ({time.perf_counter() - t_start:.1f} s)")
         return 0
-    log(f"[3/14] {at()}: kernels vs plain versions (tolerance bf16 "
+    log(f"[3/15] {at()}: kernels vs plain versions (tolerance bf16 "
         f"{TOL[torch.bfloat16]}, f32 {TOL[torch.float32]}; times: median "
         "of 20 launches, L2 flushed, queued behind a sleep: device time "
         "only):")
@@ -3139,7 +3459,7 @@ def main(argv=None) -> int:
         return 0
     grad_phase()
 
-    log(f"[4/14] {at()}: serve: full-width {cfg.name} ({cfg.num_layers} "
+    log(f"[4/15] {at()}: serve: full-width {cfg.name} ({cfg.num_layers} "
         f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads x "
         f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), random "
         f"weights seed {SEED}, bf16 compute")
@@ -3161,14 +3481,14 @@ def main(argv=None) -> int:
     profiles = {kind: profile_phase(cfg, params, args, kind == "paged")
                 for kind in ("dense", "paged")}
 
-    log(f"[5/14] {at()}: serve modes: full-width {cfg.name}, bf16, "
+    log(f"[5/15] {at()}: serve modes: full-width {cfg.name}, bf16, "
         f"{args['slots']} slots, cache {args['cache_len']}, 16-line pages, "
         f"decode chunk {args['decode_chunk']}, {args['requests']} requests "
         f"of {args['max_new']} tokens a run")
     modes = serve_modes_phase(cfg, params, args)
     plain_paths_phase(cfg, params, args)
 
-    log(f"[6/14] {at()}: consistency at full width (kernels vs plain "
+    log(f"[6/15] {at()}: consistency at full width (kernels vs plain "
         "versions):")
     consistency_phase(cfg, params)
     del params
@@ -3179,7 +3499,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     ssm = tcfg.ssm
-    log(f"[7/14] {at()}: train: full-width {tcfg.name} ({tcfg.num_layers} "
+    log(f"[7/15] {at()}: train: full-width {tcfg.name} ({tcfg.num_layers} "
         f"layers, d_model {tcfg.d_model}, {ssm.num_heads(tcfg.d_model)} SSD "
         f"heads x {ssm.head_dim}, state {ssm.state}, chunk {ssm.chunk}, vocab "
         f"{tcfg.vocab_size}), f32 weights seed {SEED}, bf16 compute, f32 "
@@ -3188,25 +3508,25 @@ def main(argv=None) -> int:
     train = train_phase(tcfg, targs, kernels["ssd_scan"]["ms"])
     torch.cuda.empty_cache()
 
-    log(f"[8/14] {at()}: train consistency at full width (kernels vs plain "
+    log(f"[8/15] {at()}: train consistency at full width (kernels vs plain "
         "vs f32):")
     train_consistency_phase(tcfg, targs)
     torch.cuda.empty_cache()
 
-    log(f"[9/14] {at()}: cluster: a scavenger job trains {tcfg.name} as "
+    log(f"[9/15] {at()}: cluster: a scavenger job trains {tcfg.name} as "
         f"phase 7 does, a high-QOS job serving {cfg.name} preempts it, it "
         "requeues and resumes from its checkpoint")
     clus = cluster_phase(tcfg, targs, cfg, args, train["losses"])
     torch.cuda.empty_cache()
 
-    log(f"[10/14] {at()}: families: SSM serving of mamba2-780m, MoE "
+    log(f"[10/15] {at()}: families: SSM serving of mamba2-780m, MoE "
         f"serving of qwen2-moe-a2.7b, starcoder2-3b; full width, "
         f"{args['slots']} slots, cache {args['cache_len']}, one wave of 4 "
         f"requests of {args['max_new']} tokens a run (two for n-gram "
         f"speculation), decode chunk {args['decode_chunk']}")
     fam = families_phase(dict(args, requests=4))
 
-    log(f"[11/14] {at()}: elastic: full-width {cfg.name} replicas sharing "
+    log(f"[11/15] {at()}: elastic: full-width {cfg.name} replicas sharing "
         f"one card and one bf16 weight set behind the router; "
         f"{args['slots']} slots, cache {args['cache_len']}, decode chunk "
         f"{args['decode_chunk']} a replica; {args['requests']} requests "
@@ -3214,7 +3534,7 @@ def main(argv=None) -> int:
         "system prompts in turn")
     elastic = elastic_phase(args)
 
-    log(f"[12/14] {at()}: tensor parallel: full-width {cfg.name} split "
+    log(f"[12/15] {at()}: tensor parallel: full-width {cfg.name} split "
         f"over two ranks sharing the card (gloo), {cfg.num_heads // 2} of "
         f"{cfg.num_heads} heads and {cfg.d_ff // 2} of d_ff {cfg.d_ff} a "
         f"rank, bf16; {args['slots']} slots, cache {args['cache_len']}, "
@@ -3224,6 +3544,8 @@ def main(argv=None) -> int:
     tp = tp_phase(dict(args, requests=4))
 
     tpar = run_train_parallel(tcfg, cfg, at)
+    dry = run_dryrun(tpar, tp, dict(dargs, decode_chunk=args[
+        "decode_chunk"]), at, started)
 
     # the main path's serve runs: the f32 4-layer identity runs are a
     # check, not the path, and log their launches on their own line
@@ -3250,7 +3572,7 @@ def main(argv=None) -> int:
     par_steps = ", ".join(f"{r['label']} {r['step_s']:.2f} s/step "
                           f"(collectives {r['coll_share']:.0%})"
                           for r in tpar["runs"])
-    log(f"[14/14] summary ({time.perf_counter() - t_start:.1f} s; serve "
+    log(f"[15/15] summary ({time.perf_counter() - t_start:.1f} s; serve "
         f"dense {dense['tok_s']:.1f} tok/s, paged {paged['tok_s']:.1f} "
         f"tok/s; modes {mode_rates} tok/s; decode kernel per token step "
         f"dense "
@@ -3261,7 +3583,9 @@ def main(argv=None) -> int:
         f"s, losses bit-identical to phase 7's; families {fam_rates} "
         f"tok/s; elastic {elastic_rates} tok/s wall; {tp_rates} tok/s; "
         f"train parallel {par_steps}; f32 identity "
-        f"{len(tpar['identity'])}/{len(tpar['identity'])}; "
+        f"{len(tpar['identity'])}/{len(tpar['identity'])}; dry run census "
+        f"{dry['census']}/{len(TRAIN_PAR_RUNS)} exact, "
+        f"{len(dry['subset'])} production combinations; "
         "launches summed over the main path: the bf16 serve runs (dense, "
         "paged, the four modes, the families' five runs, the elastic "
         "phase's five, the TP phase's two on both ranks), the kept train "

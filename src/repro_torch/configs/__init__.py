@@ -7,6 +7,7 @@ from repro_torch.configs.base import (
     RunConfig,
     SSMConfig,
     default_opt_state_dtype,
+    default_run_config,
     get_config,
     get_reduced_config,
     shape_for,
@@ -14,6 +15,7 @@ from repro_torch.configs.base import (
 
 __all__ = [
     "ARCH_IDS", "INPUT_SHAPES", "InputShape", "ModelConfig", "MoEConfig",
-    "RunConfig", "SSMConfig", "default_opt_state_dtype", "get_config",
+    "RunConfig", "SSMConfig", "default_opt_state_dtype",
+    "default_run_config", "get_config",
     "get_reduced_config", "shape_for",
 ]

@@ -199,6 +199,32 @@ def default_opt_state_dtype(cfg: ModelConfig) -> str:
     return "bfloat16" if cfg.param_count() > 100e9 else "float32"
 
 
+def default_run_config(cfg: ModelConfig, shape: InputShape,
+                       batch_divisor: int = 32) -> RunConfig:
+    """Production defaults per (arch, shape), as the JAX package's.
+
+    ``batch_divisor`` = product of batch-carrying mesh axes (pod*data); the
+    per-microbatch batch must stay divisible by it so the batch dim shards
+    cleanly at every microbatch step.  Microbatches scale with ``d_model *
+    layers`` to keep each rank's live activations to a few GB;
+    ``use_kernels`` stays False, as the JAX ``use_pallas`` does.
+    """
+    micro = 1
+    if shape.kind == "train":
+        cost = cfg.d_model * cfg.num_layers
+        if cost >= 400_000:
+            micro = 16
+        elif cost >= 150_000:
+            micro = 8
+        elif cost >= 64_000:
+            micro = 4
+        else:
+            micro = 2
+        micro = max(1, min(micro, shape.global_batch // batch_divisor))
+    return RunConfig(microbatches=micro,
+                     opt_state_dtype=default_opt_state_dtype(cfg))
+
+
 def shape_for(cfg: ModelConfig, shape: InputShape) -> ModelConfig:
     """Adapt an arch config to an input shape (long-context window)."""
     if shape.name == "long_500k" and cfg.attn_every != 0:

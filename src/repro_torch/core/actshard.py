@@ -203,6 +203,29 @@ def tp_train() -> Optional[TrainTP]:
     return _TRAIN_TP.get()
 
 
+#: whether the decode KV cache holds this rank's block of its lines (the
+#: serve step's layout where the kv heads do not divide the ``model``
+#: ranks of the installed training plan, as JAX's cache rules place it)
+_SEQ_KV: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "repro_torch_seq_kv", default=False)
+
+
+@contextlib.contextmanager
+def seq_kv_scope(on: bool):
+    """Mark the decode KV cache as sharded on its lines over the training
+    plan's ranks (``models.attention.attention_decode``) for model code
+    run inside the block."""
+    tok = _SEQ_KV.set(on)
+    try:
+        yield
+    finally:
+        _SEQ_KV.reset(tok)
+
+
+def seq_kv() -> bool:
+    return _SEQ_KV.get()
+
+
 def _all_reduce_f32(x: torch.Tensor, group) -> torch.Tensor:
     """A new tensor: the sum of ``x`` over ``group``, reduced in f32 and
     returned in ``x``'s dtype."""

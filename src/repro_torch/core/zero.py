@@ -57,6 +57,14 @@ def _dim(spec: tuple, axis: str) -> Optional[int]:
     return None
 
 
+def _data_entry(spec: tuple):
+    """The spec's entry on the batch axes: ``"data"``, ``("pod",
+    "data")`` (a multi-pod mesh where the joint product divides), or None
+    (replicated there)."""
+    dim = _dim(spec, "data")
+    return None if dim is None else spec[dim]
+
+
 @dataclass(frozen=True)
 class Leaf:
     """One parameter leaf's placement on the mesh."""
@@ -81,18 +89,25 @@ class Leaf:
 class Layout:
     """Where every leaf of a training run lives, seen from one rank.
 
-    ``mesh`` is a ``launch.mesh.Mesh`` (its ``coords`` and groups); the
-    port's mesh has no ``pod`` axis.  Leaves are listed in
-    ``repro_torch.tree.leaves`` order."""
+    ``mesh`` is a ``launch.mesh.Mesh`` (its coordinates and groups):
+    ``(data, model)``, or ``(pod, data, model)``, where a leaf's batch-axis
+    entry is ``("pod", "data")`` when the joint product divides its dim
+    and ``"data"`` alone otherwise (replicated over ``pod``, as JAX lays
+    it out).  Slices, gathers and reductions go over the entry's own
+    group; the gradient of a leaf held whole on each pod is then summed
+    over ``pod`` too.  Leaves are listed in ``repro_torch.tree.leaves``
+    order."""
 
     def __init__(self, cfg: ModelConfig, mesh, run: RunConfig):
-        if "pod" in mesh.axis_names:
-            raise ValueError("the port's training mesh is (data, model)")
         self.cfg, self.mesh, self.run = cfg, mesh, run
         self.strategy = get_strategy(run.strategy)
-        self.n_data = mesh.shape["data"]
-        self.n_model = mesh.shape["model"]
-        self.d, self.m = mesh.coords
+        sizes = mesh.shape
+        self.n_pod = sizes.get("pod", 1)
+        self.n_data = sizes["data"]
+        self.n_model = sizes["model"]
+        coord = dict(zip(mesh.axis_names, mesh.coords))
+        self.p, self.d, self.m = (coord.get("pod", 0), coord["data"],
+                                  coord["model"])
         p_specs = shd.param_shardings(cfg, mesh, run)
         o_specs = shd.opt_shardings(cfg, mesh, run)
         from repro_torch.models.spec import model_spec
@@ -170,42 +185,74 @@ class Layout:
 
     @property
     def world(self) -> int:
-        return self.n_data * self.n_model
+        return self.n_pod * self.n_data * self.n_model
+
+    @property
+    def batch_group(self):
+        """The group of the ranks that share this rank's ``model`` index:
+        the batch's ranks (``("pod", "data")`` on a pod mesh)."""
+        if self.n_pod > 1:
+            return self.mesh.group(("pod", "data"))
+        return self.mesh.group("data")
 
     def batch_rows(self, rows: int) -> tuple[int, int]:
         """(start, count) of this rank's rows of a ``rows``-row batch
-        (``sharding.batch_partition``): a ``data`` block, or all of them
-        when the batch does not divide."""
+        (``sharding.batch_partition``): a block of the batch axes, or all
+        of them when the batch does not divide."""
         axes = shd.batch_partition(self.mesh, rows, self.strategy)
-        if not axes or self.n_data == 1:
+        if not axes:
             return 0, rows
-        n = rows // self.n_data
-        return self.d * n, n
+        i, n = self._index(shd._entry(axes))
+        if n == 1:
+            return 0, rows
+        return i * (rows // n), rows // n
 
     # ------------------------------------------------------------ slices ----
-    def _index(self, axis: str) -> tuple[int, int]:
-        return ((self.d, self.n_data) if axis == "data"
-                else (self.m, self.n_model))
+    def _index(self, entry) -> tuple[int, int]:
+        """(this rank's index, the rank count) along a spec entry."""
+        if entry == "model":
+            return self.m, self.n_model
+        if entry == "data":
+            return self.d, self.n_data
+        if entry == ("pod", "data"):
+            return self.p * self.n_data + self.d, self.n_pod * self.n_data
+        raise ValueError(f"spec entry {entry!r}")
 
     def local(self, full: torch.Tensor, spec: tuple) -> torch.Tensor:
         """This rank's block of a whole leaf under ``spec`` (a view)."""
         out = full
-        for axis in ("model", "data"):
-            dim = _dim(spec, axis)
-            if dim is not None:
-                i, n = self._index(axis)
+        for dim, e in enumerate(spec):
+            if e is not None:
+                i, n = self._index(e)
                 size = full.shape[dim] // n
                 out = out.narrow(dim, i * size, size)
         return out
 
-    def gather(self, local: torch.Tensor, spec: tuple) -> torch.Tensor:
-        """The whole leaf from every rank's block (collective)."""
-        out = local
+    def _sharded(self, spec: tuple) -> list:
+        """``[(dim, entry)]`` of a spec's sharded dims: the batch axes'
+        first, then ``model``'s (the order of the gathers)."""
+        out = []
         for axis in ("data", "model"):
             dim = _dim(spec, axis)
             if dim is not None:
-                out = _all_gather_dim(out, dim, self.mesh.group(axis),
-                                      self._index(axis)[1])
+                out.append((dim, spec[dim]))
+        return out
+
+    def local_meta(self, tree, specs):
+        """``meta`` tensors of this rank's blocks of a tree of whole leaves
+        under a spec tree (the dry run's arguments: shapes, no storage)."""
+        spec_list = [s for _, s in shd.spec_leaves(specs)]
+        return unflatten(tree, [
+            torch.empty(tuple(self.local(t, s).shape), dtype=t.dtype,
+                        device="meta")
+            for (_, t), s in zip(leaves_with_path(tree), spec_list)])
+
+    def gather(self, local: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """The whole leaf from every rank's block (collective)."""
+        out = local
+        for dim, e in self._sharded(spec):
+            out = _all_gather_dim(out, dim, self.mesh.group(e),
+                                  self._index(e)[1])
         return out
 
     def shard(self, tree, specs_of: str = "param"):
@@ -232,8 +279,7 @@ class Layout:
         cut along its first unsharded dimension so that each holds about
         ``SLICE_ELEMS`` elements at most; every rank gets every part."""
         free = [d for d in range(local.ndim)
-                if local.shape[d] > 1 and not any(
-                    _dim(spec, axis) == d for axis in ("data", "model"))]
+                if local.shape[d] > 1 and spec[d] is None]
         if not free:
             yield (), self.gather(local, spec)
             return
@@ -249,26 +295,30 @@ class Layout:
 
     def _copies(self, spec: tuple) -> int:
         """How many ranks hold each block of a leaf under ``spec``."""
-        out = 1
-        for axis, n in (("data", self.n_data), ("model", self.n_model)):
-            if _dim(spec, axis) is None:
-                out *= n
-        return out
+        blocks = 1
+        for _, e in self._sharded(spec):
+            blocks *= self._index(e)[1]
+        return self.world // blocks
 
     def opt_view(self, leaf: Leaf, t: torch.Tensor) -> torch.Tensor:
         """The optimizer-layout slice of a parameter-layout tensor (a view
         of it; the tensor itself where the two layouts agree)."""
         dim = leaf.opt_data_dim
-        if dim is None or self.n_data == 1:
+        if dim is None:
             return t
-        n = t.shape[dim] // self.n_data
-        return t.narrow(dim, self.d * n, n)
+        i, n = self._index(leaf.opt[dim])
+        if n == 1:
+            return t
+        size = t.shape[dim] // n
+        return t.narrow(dim, i * size, size)
 
     def owned(self, leaf: Leaf) -> bool:
         """Whether this rank counts ``leaf``'s optimizer slice in a sum
         over the world: once per distinct slice."""
         o = leaf.opt
-        return ((_dim(o, "data") is not None or self.d == 0)
+        e = _data_entry(o)
+        on_pod = e == ("pod", "data") or self.p == 0
+        return ((e is not None or self.d == 0) and on_pod
                 and (_dim(o, "model") is not None or self.m == 0))
 
     # --------------------------------------------------------- gradients ----
@@ -280,13 +330,13 @@ class Layout:
     def reduce_grads(self, grads: list, dtype=None, seq: bool = False) -> list:
         """The gradient side of the JAX ``constrain_grads``: one backward
         pass's gradients (parameter layout; a ZeRO-3 leaf's already summed
-        over ``data`` by its gather) -> the ZeRO gradient layout
-        (``grad_shardings``), summed over the batch's ranks and, for the
-        partial leaves (of a pass with the sequence sharded: ``seq``),
+        over its batch-axis entry by its gather) -> the ZeRO gradient
+        layout (``grad_shardings``), summed over the batch's ranks and, for
+        the partial leaves (of a pass with the sequence sharded: ``seq``),
         over the model ranks.  ``dtype`` (bf16 under
         ``grad_reduce_bf16``) is cast to before any reduction."""
         out = []
-        split = self.n_data > 1
+        split = self.n_pod * self.n_data > 1
         for leaf, g in zip(self.leaves, grads):
             if dtype is not None:
                 g = g.to(dtype)
@@ -296,13 +346,26 @@ class Layout:
             if split and leaf.data_dim is None:
                 dim = leaf.opt_data_dim
                 if self.run.zero_stage >= 2 and dim is not None:
-                    g = _reduce_scatter_dim(g, dim, self.mesh.group("data"),
-                                            self.n_data)
+                    e = leaf.opt[dim]
+                    g = _reduce_scatter_dim(g, dim, self.mesh.group(e),
+                                            self._index(e)[1])
+                    g = self._pod_sum(g, e)
                 else:
                     g = g.contiguous()
-                    dist.all_reduce(g, group=self.mesh.group("data"))
+                    dist.all_reduce(g, group=self.batch_group)
+            elif split:
+                g = self._pod_sum(g, _data_entry(leaf.param))
             out.append(g)
         return out
+
+    def _pod_sum(self, g: torch.Tensor, entry) -> torch.Tensor:
+        """The sum over ``pod`` of a gradient that a reduction over
+        ``entry`` has summed over ``data`` only (a leaf held whole on each
+        pod)."""
+        if entry == "data" and self.n_pod > 1:
+            g = g.contiguous()
+            dist.all_reduce(g, group=self.mesh.group("pod"))
+        return g
 
     def to_opt_layout(self, grads: list) -> list:
         """Gradients in the ZeRO gradient layout -> the optimizer layout
@@ -314,22 +377,23 @@ class Layout:
     def regather_params(self, params: list) -> None:
         """After an update of each rank's optimizer slice, all-gather the
         slices of data-replicated parameters back into place."""
-        if self.n_data == 1:
+        if self.n_pod * self.n_data == 1:
             return
-        group = self.mesh.group("data")
         for leaf, p in zip(self.leaves, params):
             dim = leaf.opt_data_dim
             if dim is None:
                 continue
-            n = p.shape[dim] // self.n_data
+            e = leaf.opt[dim]
+            i, k = self._index(e)
+            n = p.shape[dim] // k
             parts = [torch.empty_like(p.narrow(dim, 0, n), memory_format=
                                       torch.contiguous_format)
-                     for _ in range(self.n_data)]
-            dist.all_gather(parts, p.narrow(dim, self.d * n, n).contiguous(),
-                            group=group)
-            for i, part in enumerate(parts):
-                if i != self.d:
-                    p.narrow(dim, i * n, n).copy_(part)
+                     for _ in range(k)]
+            dist.all_gather(parts, p.narrow(dim, i * n, n).contiguous(),
+                            group=self.mesh.group(e))
+            for j, part in enumerate(parts):
+                if j != i:
+                    p.narrow(dim, j * n, n).copy_(part)
 
     # ------------------------------------------------------------ ZeRO-3 ----
     def param_use(self, grad_dtype=None):
@@ -341,16 +405,20 @@ class Layout:
         own)."""
         bf16 = self.run.gather_bf16
         dims = {leaf.path: leaf.data_dim for leaf in self.leaves}
+        entries = {leaf.path: _data_entry(leaf.param) for leaf in self.leaves}
         if not bf16 and all(d is None for d in dims.values()):
             return None
-        group, n = self.mesh.group("data"), self.n_data
 
-        def use(t, dim):
+        def use(t, dim, entry):
             if bf16 and t.dtype == torch.float32:
                 t = t.to(torch.bfloat16)
-            if dim is None or n == 1:
+            if dim is None:
                 return t
-            return _GatherData.apply(t, dim, group, n, self.d, grad_dtype)
+            i, n = self._index(entry)
+            if n == 1:
+                return t
+            return _GatherData.apply(t, dim, self.mesh.group(entry), n, i,
+                                     grad_dtype)
 
         def walk(tree, path, drop):
             if isinstance(tree, dict):
@@ -360,7 +428,8 @@ class Layout:
                 return [walk(v, f"{path}[{i}]", drop)
                         for i, v in enumerate(tree)]
             dim = dims[path]
-            return use(tree, None if dim is None else dim - drop)
+            return use(tree, None if dim is None else dim - drop,
+                       entries[path])
 
         def fn(tree, which):
             if which == "layers":      # one group's sublayers, layers dim off

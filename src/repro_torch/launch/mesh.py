@@ -13,12 +13,18 @@ checks).  :func:`launch_ranks` starts the processes.
 Nothing is chosen behind the caller's back: a mesh of more than one cell
 needs ``torch.distributed`` initialised over exactly its cells, the
 devices named one per cell, and the backend named.  NCCL takes one rank
-per card; ranks that share a card use gloo.  The pod-shaped production
-meshes of the JAX package (``make_production_mesh``) come with its
-dry run (ROADMAP A5).
+per card; ranks that share a card use gloo.
+
+The JAX package's production meshes (:func:`make_production_mesh`, 16 x
+16 cells, or 2 x 16 x 16 with a leading ``pod`` axis) serve its dry run
+(``launch.dryrun``): the port builds them inside a :func:`virtual_world`,
+the fake backend over every cell, where this process is one rank whose
+devices are ``meta``.
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import multiprocessing as mp
 import os
 import queue
@@ -36,14 +42,20 @@ import torch.distributed as dist
 from repro_torch.device import resolve_device
 
 AXES = ("data", "model")
+#: the production meshes of the JAX package: one pod of 16 x 16 cells, and
+#: two pods joined on a leading ``pod`` axis
+PRODUCTION_SHAPES = {False: ((16, 16), AXES),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """A ``(data, model)`` grid of ``torch.device`` seen from one process."""
-    devices: np.ndarray                 # (data, model) object array
-    coords: tuple                       # this process's (data, model) cell
-    groups: dict = field(default_factory=dict)   # axis -> process group
+    """A grid of ``torch.device`` seen from one process: ``(data,
+    model)``, or ``(pod, data, model)`` for the multi-pod production mesh
+    (:func:`make_production_mesh`)."""
+    devices: np.ndarray                 # object array, a dim an axis
+    coords: tuple                       # this process's cell
+    groups: dict = field(default_factory=dict)   # axis (or axes) -> group
     cpu_group: object = None            # gloo over this process's model row
     backend: Optional[str] = None
     axis_names: tuple = AXES
@@ -56,21 +68,32 @@ class Mesh:
     def rank(self) -> int:
         """This process's cell, row-major (its ``torch.distributed``
         rank)."""
-        return self.coords[0] * self.devices.shape[1] + self.coords[1]
+        return int(np.ravel_multi_index(self.coords, self.devices.shape))
 
     @property
     def device(self) -> torch.device:
         return self.devices[self.coords]
 
-    def group(self, axis: str):
-        """The process group of ``axis`` through this cell (None where
-        the mesh has none: an axis of size 1)."""
+    def group(self, axis):
+        """The process group of ``axis`` through this cell: one axis name,
+        or a tuple of names for the cells that differ along those axes
+        (``("pod", "data")``, the batch of a multi-pod mesh).  None where
+        the mesh has none: an axis of size 1."""
         return self.groups.get(axis)
 
     def model_ranks(self) -> list:
         """The ranks of this cell's ``model`` row, in axis order."""
-        n_model = self.devices.shape[1]
-        return [self.coords[0] * n_model + j for j in range(n_model)]
+        return _axis_ranks(self.devices.shape, self.coords,
+                           (len(self.axis_names) - 1,))
+
+
+def _axis_ranks(shape: tuple, coords: tuple, dims: tuple) -> list:
+    """The ranks of the cells that share ``coords`` outside ``dims``,
+    row-major."""
+    sub = [range(shape[d]) if d in dims else [coords[d]]
+           for d in range(len(shape))]
+    return sorted(int(np.ravel_multi_index(c, shape))
+                  for c in itertools.product(*sub))
 
 
 def make_mesh(data: int = 1, model: int = 1, *, devices=None,
@@ -126,6 +149,64 @@ def make_mesh(data: int = 1, model: int = 1, *, devices=None,
             groups["data"] = g
     return Mesh(devices=grid, coords=coords, groups=groups,
                 cpu_group=cpu_group, backend=backend)
+
+
+def virtual_mesh(shape: tuple, axis_names: tuple = AXES) -> Mesh:
+    """The mesh of this process's rank in a ``virtual_world``: cells on
+    the ``meta`` device, the groups of the axes through the cell (and of
+    ``("pod", "data")`` on a pod mesh) on the fake backend, no gloo group
+    (a gloo group over a fake world would wait for peers that never
+    come).  The world must hold exactly the mesh's cells."""
+    n = int(np.prod(shape))
+    if not dist.is_initialized() or dist.get_world_size() != n \
+            or dist.get_backend() != "fake":
+        raise RuntimeError(f"virtual_mesh: needs a virtual_world of {n} "
+                           "ranks")
+    grid = np.empty(n, dtype=object)
+    grid[:] = [torch.device("meta")] * n
+    grid = grid.reshape(shape)
+    coords = tuple(int(c) for c in np.unravel_index(dist.get_rank(), shape))
+    axes = [(a,) for a in axis_names]
+    if "pod" in axis_names:
+        axes.append(("pod", "data"))
+    groups = {}
+    for names in axes:
+        dims = tuple(axis_names.index(a) for a in names)
+        if all(shape[d] == 1 for d in dims):
+            continue
+        g = dist.new_group(_axis_ranks(shape, coords, dims))
+        groups[names[0] if len(names) == 1 else names] = g
+    return Mesh(devices=grid, coords=coords, groups=groups, backend="fake",
+                axis_names=tuple(axis_names))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The JAX package's production mesh — one pod, ``(data 16, model
+    16)``, or two, ``(pod 2, data 16, model 16)`` — seen from this
+    process's rank of a :func:`virtual_world` of its 256 or 512 cells."""
+    shape, axes = PRODUCTION_SHAPES[multi_pod]
+    return virtual_mesh(shape, axes)
+
+
+@contextlib.contextmanager
+def virtual_world(rank: int, world: int):
+    """``torch.distributed`` on the fake backend over ``world`` ranks, as
+    rank ``rank``: every collective returns at once and touches no data,
+    so one process runs one rank's program (on ``meta`` tensors) as if
+    the other ranks were there.  The dry run's stand-in for JAX's
+    placeholder devices.  The process group is destroyed on exit, also
+    when the block raises; a world already initialised is refused."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("virtual_world: torch.distributed is already "
+                           "initialised in this process")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def single_device_mesh(device=None) -> Mesh:

@@ -27,8 +27,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+import torch.distributed as dist
+
 from repro_torch.core.actshard import (
-    maybe_psum, tp_enter, tp_exit, tp_train, tp_will_reduce,
+    maybe_psum, seq_kv, tp_enter, tp_exit, tp_gather, tp_train,
+    tp_will_reduce,
 )
 from repro_torch.kernels import ops as kops
 
@@ -312,7 +315,10 @@ def attention_decode(p: dict, x: torch.Tensor, cache: dict, pos,
 
     The new K/V line is written **in place** at ring slot ``pos % slots``.
     ``use_kernels`` runs the flash-decode kernel (``window`` marks a
-    sliding-window ring).  Returns (out (B,1,d), cache)."""
+    sliding-window ring).  With the cache's lines sharded over the
+    training plan's ranks (``core.actshard.seq_kv``) the softmax is
+    combined over them (:func:`_decode_seq_sharded`).  Returns (out
+    (B,1,d), cache)."""
     B = x.shape[0]
     ck, cv = cache["k"], cache["v"]
     slots = ck.shape[1]
@@ -321,6 +327,12 @@ def attention_decode(p: dict, x: torch.Tensor, cache: dict, pos,
     if cfg.pos_embedding == "rope":
         q = apply_rope(q, posv[:, None], cfg.rope_theta)
         k = apply_rope(k, posv[:, None], cfg.rope_theta)
+    plan = tp_train()
+    if plan is not None and seq_kv():
+        assert not use_kernels, \
+            "the decode kernel reads a whole cache; this one is sharded"
+        o = _decode_seq_sharded(q, k, v, cache, posv, cfg, plan)
+        return out_proj(p, o), cache
     bidx = torch.arange(B, device=x.device)
     slot = posv % slots                               # (B,) ring index
     ck.index_put_((bidx, slot), k[:, 0].to(ck.dtype))
@@ -349,6 +361,59 @@ def attention_decode(p: dict, x: torch.Tensor, cache: dict, pos,
     o = torch.einsum("bkgqs,bskd->bqkgd", probs,
                      cv.to(x.dtype)).reshape(B, 1, H, Dh)
     return out_proj(p, o), cache
+
+
+def _decode_seq_sharded(q, k, v, cache: dict, posv, cfg: ModelConfig,
+                        plan) -> torch.Tensor:
+    """Decode attention over a cache whose ring slots are sharded over the
+    plan's ranks, rank i holding slots ``[i * n, (i+1) * n)`` of every kv
+    head.  The rank owning the new line's slot writes it (``k``/``v``
+    hold every kv head: their weights are replicated where the kv heads
+    do not divide the ranks).  Every rank scores every query head (its
+    own, all-gathered where the heads are sharded) against its slots,
+    the running maxima are all-reduced (max), and the exponentials'
+    sums and the weighted values (f32) in one all-reduce (sum); the
+    rank keeps its own heads of the output.  Returns (B, 1, H_rank,
+    Dh)."""
+    B = q.shape[0]
+    ck, cv = cache["k"], cache["v"]
+    n = ck.shape[1]
+    slots, first = n * plan.size, plan.index * n
+    slot = posv % slots
+    mine = (slot >= first) & (slot < first + n)
+    line = torch.where(mine, slot - first, 0)
+    bidx = torch.arange(B, device=q.device)
+    for c, new in ((ck, k), (cv, v)):
+        keep = mine[:, None, None]
+        c.index_put_((bidx, line), torch.where(keep, new[:, 0].to(c.dtype),
+                                               c[bidx, line]))
+    h_rank = q.shape[2]
+    if plan.attn:
+        q = tp_gather(q, 2)
+    H, Dh = q.shape[2], q.shape[3]
+    K = ck.shape[2]
+    qg = q.reshape(B, 1, K, H // K, Dh)
+    slot_ids = first + torch.arange(n, device=q.device)
+    slot_pos = posv[:, None] - torch.remainder(posv[:, None] - slot_ids[None],
+                                               slots)
+    valid = (slot_pos >= 0) & (slot_pos <= posv[:, None])
+    if cfg.sliding_window is not None:
+        valid &= (posv[:, None] - slot_pos) < cfg.sliding_window
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg,
+                          ck.to(q.dtype)).to(f32) * (Dh ** -0.5)
+    logits = torch.where(valid[:, None, None, None, :], logits, _NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=plan.group)
+    e = torch.exp(logits - m)                          # (B,K,G,1,n)
+    o = torch.einsum("bkgqs,bskd->bqkgd", e, cv.to(f32))
+    part = torch.cat([o.reshape(B, -1), e.sum(dim=-1).reshape(B, -1)], -1)
+    dist.all_reduce(part, group=plan.group)
+    o = part[:, :H * Dh].reshape(B, 1, H, Dh) / part[:, H * Dh:].reshape(
+        B, 1, H, 1)
+    o = o.to(q.dtype)
+    if plan.attn:
+        o = o.narrow(2, plan.index * h_rank, h_rank)
+    return o
 
 
 def attention_decode_paged(p: dict, x: torch.Tensor, cache: dict, pos,

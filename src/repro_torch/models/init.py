@@ -4,7 +4,9 @@
 Same tree, shapes and init styles as the JAX package's ``models/init.py``;
 the numbers differ (threefry against PyTorch's generator), so tests that
 compare the two sides load one set of weights into both
-(``repro_torch.weights.params_from_jax``).
+(``repro_torch.weights.params_from_jax``).  :func:`abstract_params` is
+the tree on the ``meta`` device (the dry run's stand-in for JAX's
+``ShapeDtypeStruct`` tree).
 """
 from __future__ import annotations
 
@@ -65,3 +67,20 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None, keep=None):
         raise TypeError(type(tree))
 
     return build(model_spec(cfg), "")
+
+
+def abstract_params(cfg: ModelConfig):
+    """The parameter tree on the ``meta`` device: the shapes and dtype of
+    :func:`init_params`, no storage (the dry run's arguments)."""
+    dtype = torch_dtype(cfg.param_dtype)
+
+    def build(tree):
+        if isinstance(tree, ParamSpec):
+            return torch.empty(tree.shape, dtype=dtype, device="meta")
+        if isinstance(tree, dict):
+            return {k: build(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [build(v) for v in tree]
+        raise TypeError(type(tree))
+
+    return build(model_spec(cfg))

@@ -1,7 +1,9 @@
-"""Concrete synthetic batches — the port of ``make_batch`` from the JAX
-package's ``models/inputs.py``.  The numbers come from one numpy
-generator in the JAX draw order, so the same seed gives both packages the
-same batch.
+"""Input construction — the port of the JAX package's
+``models/inputs.py``: abstract inputs on the ``meta`` device for the dry
+run (``input_specs``, one entry per model input, the JAX
+``ShapeDtypeStruct`` stand-ins) and concrete synthetic batches
+(``make_batch``), whose numbers come from one numpy generator in the JAX
+draw order, so the same seed gives both packages the same batch.
 
 The modality frontends are stubs, as in the JAX package: VLM batches
 carry precomputed patch embeddings (``prefix_embeddings``, at most
@@ -34,6 +36,38 @@ def _train_fields(cfg: ModelConfig, B: int, S: int) -> list:
     fields.append(("labels", (B, S), "int"))
     fields.append(("loss_mask", (B, S), "mask"))
     return fields
+
+
+_FIELD_DTYPES = {"emb": torch.bfloat16, "int": torch.int32,
+                 "mask": torch.float32}
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def train_input_specs(cfg: ModelConfig, shape: InputShape,
+                      batch_override: int | None = None) -> dict:
+    """The training batch's entries as ``meta`` tensors."""
+    B = batch_override or shape.global_batch
+    return {name: _meta(shp, _FIELD_DTYPES[kind])
+            for name, shp, kind in _train_fields(cfg, B, shape.seq_len)}
+
+
+def decode_input_specs(cfg: ModelConfig, shape: InputShape,
+                       batch_override: int | None = None) -> dict:
+    """A decode step's inputs as ``meta`` tensors: one token a slot and
+    the position."""
+    B = batch_override or shape.global_batch
+    return {"token": _meta((B, 1), torch.int32),
+            "pos": _meta((), torch.int32)}
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape,
+                batch_override: int | None = None) -> dict:
+    if shape.kind == "decode":
+        return decode_input_specs(cfg, shape, batch_override)
+    return train_input_specs(cfg, shape, batch_override)
 
 
 def make_batch(cfg: ModelConfig, shape: InputShape, seed: int = 0,

@@ -76,6 +76,14 @@ def _take(tree, g: int):
     return tree[g]
 
 
+def _use_group(params, g: int, P: int) -> list:
+    """Group ``g``'s sublayer trees as the model uses them
+    (``core.actshard.use_params``: the views themselves outside every
+    scope)."""
+    return use_params([_take(params["layers"][i], g) for i in range(P)],
+                      "layers")
+
+
 def _groups(params) -> int:
     leaf = params["layers"][0]["norm1"]["scale"]
     return leaf.shape[0]
@@ -281,14 +289,18 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, run: RunConfig,
 # ----------------------------------------------------------------- cache ----
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None,
-               paging=None, kv_heads: Optional[int] = None):
+               paging=None, kv_heads: Optional[int] = None,
+               abstract: bool = False):
     """Decode cache: one entry per sublayer slot, stacked over groups —
     ``{"k", "v"}`` for an attention sublayer, ``{"state", "conv"}`` for
     an SSM one.  ``paging`` makes every attention sublayer a shared page
     pool; it is full-attention only (SSM state is not line-addressable),
     so callers gate on ``cfg.ssm is None``.  ``kv_heads`` sizes the
     attention leaves' kv-head axis (a tensor-parallel shard's ``K/tp``;
-    default ``cfg.num_kv_heads``)."""
+    default ``cfg.num_kv_heads``).  ``abstract`` puts the cache on the
+    ``meta`` device (the dry run's; ``device`` is then ignored)."""
+    if abstract:
+        device = torch.device("meta")
     P = group_period(cfg)
     n_groups = cfg.num_layers // P
     layers = []
@@ -396,6 +408,7 @@ def prefill(params, batch: dict, cfg: ModelConfig, run: RunConfig,
     """
     P = group_period(cfg)
     sched = layer_schedule(cfg)[:P]
+    params = use_params(params, "root")
     h = build_hidden(params, batch, cfg)
     S = h.shape[1]
     cache_len = cache_len or S
@@ -413,8 +426,9 @@ def prefill(params, batch: dict, cfg: ModelConfig, run: RunConfig,
     per_group = []
     for g in range(_groups(params)):
         caches = []
+        gp = _use_group(params, g, P)
         for i, (mixer, ffn) in enumerate(sched):
-            p = _take(params["layers"][i], g)
+            p = gp[i]
             hh = rmsnorm(h, p["norm1"]["scale"], cfg.norm_eps)
             if mixer == "attn":
                 hh, c = A.attention_prefill(p["attn"], hh, cfg, slots,
@@ -458,6 +472,7 @@ def prefill_suffix(params, batch: dict, cache, page_table, start,
     P = group_period(cfg)
     sched = layer_schedule(cfg)[:P]
     assert _attn_only(cfg), "prefix reuse is full-attention only"
+    params = use_params(params, "root")
     h = embed_tokens(params, batch["tokens"], cfg)
     S = h.shape[1]
     if cfg.pos_embedding == "sinusoidal":
@@ -467,8 +482,9 @@ def prefill_suffix(params, batch: dict, cache, page_table, start,
     per_group = []
     for g in range(_groups(params)):
         caches = []
+        gp = _use_group(params, g, P)
         for i, (_mixer, ffn) in enumerate(sched):
-            p = _take(params["layers"][i], g)
+            p = gp[i]
             c = _take(cache["layers"][i], g)
             hh = rmsnorm(h, p["norm1"]["scale"], cfg.norm_eps)
             hh, kv = A.attention_prefill_paged(p["attn"], hh, c, page_table,
@@ -508,14 +524,16 @@ def decode_step(params, cache, token, pos, cfg: ModelConfig, run: RunConfig,
     P = group_period(cfg)
     sched = layer_schedule(cfg)[:P]
     B = token.shape[0]
+    params = use_params(params, "root")
     h = embed_tokens(params, token, cfg)
     if cfg.pos_embedding == "sinusoidal":
         posv = torch.broadcast_to(torch.as_tensor(pos, device=h.device), (B,))
         pe = A.sinusoidal_pe(posv[:, None], cfg.d_model)   # (B,1,d)
         h = h + pe.to(h.dtype)
     for g in range(_groups(params)):
+        gp = _use_group(params, g, P)
         for i, (mixer, ffn) in enumerate(sched):
-            p = _take(params["layers"][i], g)
+            p = gp[i]
             c = _take(cache["layers"][i], g)
             hh = rmsnorm(h, p["norm1"]["scale"], cfg.norm_eps)
             if mixer != "attn":

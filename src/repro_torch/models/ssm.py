@@ -115,6 +115,47 @@ def _post_conv_split(u, cfg: ModelConfig, di: Optional[int] = None):
     return u[..., :di], u[..., di:di + N], u[..., di + N:]
 
 
+def _rank_block(p: dict, cfg: ModelConfig):
+    """The block as this rank runs it under a training TP plan (none:
+    as it is): ``(p, channels, di)``.  Where the plan shards the inner
+    dim but not the heads, the inner-dim weights are gathered and the
+    block runs whole; where it shards the heads, ``channels`` indexes the
+    rank's conv channels — its ``xin`` columns and every ``B`` and ``C``
+    channel, the conv's channels being ``[xin, B, C]`` — and ``di`` is
+    its share of the inner dim."""
+    plan = tp_train()
+    ssm = cfg.ssm
+    if plan is not None and plan.ssm_inner and not plan.ssm:
+        p = dict(p, wz=tp_gather(p["wz"], 1), wx=tp_gather(p["wx"], 1),
+                 norm_scale=tp_gather(p["norm_scale"], 0),
+                 wo=tp_gather(p["wo"], 0))
+    di = p["A_log"].shape[0] * ssm.head_dim       # this rank's heads
+    channels = None
+    if plan is not None and plan.ssm:
+        whole = ssm.d_inner(cfg.d_model)
+        channels = torch.cat([
+            torch.arange(plan.index * di, (plan.index + 1) * di),
+            torch.arange(whole, whole + 2 * ssm.state)]).to(
+                p["conv_w"].device)
+    return p, channels, di
+
+
+def _rank_conv(p: dict, channels):
+    """The conv weights of this rank's channels (all of them: None)."""
+    if channels is None:
+        return p["conv_w"], p["conv_b"]
+    return (p["conv_w"].index_select(1, channels),
+            p["conv_b"].index_select(0, channels))
+
+
+def _whole_channels(u: torch.Tensor, di: int) -> torch.Tensor:
+    """Conv inputs ``[xin, B, C]`` of this rank's ``xin`` columns -> every
+    rank's, the ``xin`` part all-gathered over the ranks (the decode
+    cache holds the conv window whole on every rank)."""
+    return torch.cat([tp_gather(u[..., :di], u.ndim - 1), u[..., di:]],
+                     dim=-1)
+
+
 def ssm_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
               use_kernels: bool = False) -> torch.Tensor:
     """(B,S,d) -> (B,S,d), full-sequence (training core).  Under a
@@ -124,28 +165,15 @@ def ssm_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
     where they do not (a rank's columns would not fall on whole heads)."""
     plan = tp_train()
     points = plan is not None and (plan.ssm_inner or plan.seq)
-    sharded = points and plan.ssm
     if points:
         x = tp_enter(x)
-        if plan.ssm_inner and not plan.ssm:
-            p = dict(p, wz=tp_gather(p["wz"], 1), wx=tp_gather(p["wx"], 1),
-                     norm_scale=tp_gather(p["norm_scale"], 0),
-                     wo=tp_gather(p["wo"], 0))
+    p, channels, di = _rank_block(p, cfg)
+    sharded = channels is not None
     B, S, _ = x.shape
     ssm = cfg.ssm
     H = p["A_log"].shape[0]                  # this rank's heads
     P = ssm.head_dim
-    di = H * P
-    conv_w, conv_b = p["conv_w"], p["conv_b"]
-    if sharded:
-        # the conv channels are [xin, B, C]: this rank's xin columns and
-        # every B and C channel
-        whole = ssm.d_inner(cfg.d_model)
-        idx = torch.cat([
-            torch.arange(plan.index * di, (plan.index + 1) * di),
-            torch.arange(whole, whole + 2 * ssm.state)]).to(conv_w.device)
-        conv_w, conv_b = conv_w.index_select(1, idx), conv_b.index_select(
-            0, idx)
+    conv_w, conv_b = _rank_conv(p, channels)
     z, u, dt_raw = _proj_split(p, x, cfg)
     u, _ = _causal_conv(u, conv_w, conv_b)
     u = F.silu(u)
@@ -199,16 +227,27 @@ def ssm_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
     ``conv_end`` (int, optional: ``front_pad + num_real``) ends the conv
     window at the last real token instead of the padded tail.
 
+    Under a training TP plan (the serve step's) the block runs as
+    :func:`ssm_train` runs it — on this rank's heads, ``state`` holding
+    them, the output summed over the ranks — and ``conv`` holds every
+    channel, as the decode cache does.
+
     Returns (out (B,S,d), {"state" (B,H,P,N) f32, "conv" (B,W-1,C)})."""
+    plan = tp_train()
+    points = plan is not None and plan.ssm_inner
+    if points:
+        x = tp_enter(x)
+    p, channels, di = _rank_block(p, cfg)
     B, S, _ = x.shape
     ssm = cfg.ssm
-    H, P = ssm.num_heads(cfg.d_model), ssm.head_dim
+    H, P = p["A_log"].shape[0], ssm.head_dim
     z, u, dt_raw = _proj_split(p, x, cfg)
     if valid is not None:
         u = u * valid[None, :, None].to(u.dtype)
-    u_conv, conv_state = _causal_conv(u, p["conv_w"], p["conv_b"])
+    conv_w, conv_b = _rank_conv(p, channels)
+    u_conv, conv_state = _causal_conv(u, conv_w, conv_b)
     u_conv = F.silu(u_conv)
-    xin, Bm, Cm = _post_conv_split(u_conv, cfg)
+    xin, Bm, Cm = _post_conv_split(u_conv, cfg, di)
     dt = F.softplus(dt_raw.to(f32) + p["dt_bias"].to(f32))
     if valid is not None:
         dt = dt * valid[None, :, None].to(dt.dtype)
@@ -217,7 +256,9 @@ def ssm_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
     y, state = ssd_chunked(xh, dt, A, Bm, Cm, ssm.chunk)
     y = y + xh * p["D"].to(y.dtype)[None, None, :, None]
     y = y.reshape(B, S, H * P)
-    y = _rmsnorm_gated(y, z, p["norm_scale"], cfg.norm_eps)
+    sharded = channels is not None
+    y = _rmsnorm_gated(y, z, p["norm_scale"], cfg.norm_eps,
+                       width=ssm.d_inner(cfg.d_model) if sharded else None)
     out = y @ p["wo"].to(y.dtype)
     if conv_end is not None:
         # window of W-1 inputs ending at the last real token; when the
@@ -227,6 +268,10 @@ def ssm_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
         up = torch.cat([torch.zeros((B, W - 1, u.shape[-1]), dtype=u.dtype,
                                     device=u.device), u], dim=1)
         conv_state = up[:, conv_end:conv_end + W - 1]
+    if sharded:
+        conv_state = _whole_channels(conv_state, di)
+    if points:
+        out = tp_exit(out, partial=sharded)
     return out, {"state": state,
                  "conv": conv_state.to(torch_dtype(cfg.dtype))}
 
@@ -234,17 +279,29 @@ def ssm_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
 def ssm_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig):
     """One-token recurrent decode.  x: (B,1,d); cache: this group's
     ``state`` (B,H,P,N) and ``conv`` (B,W-1,C), updated **in place**
-    (``copy_``) as the attention decode writes its KV line.  Returns
+    (``copy_``) as the attention decode writes its KV line.  Under a
+    training TP plan (the serve step's) the block runs on this rank's
+    heads, as :func:`ssm_prefill` does: ``state`` holds them, ``conv``
+    every channel (the step's ``xin`` columns all-gathered).  Returns
     (out (B,1,d), cache)."""
+    plan = tp_train()
+    points = plan is not None and plan.ssm_inner
+    if points:
+        x = tp_enter(x)
+    p, channels, di = _rank_block(p, cfg)
     B = x.shape[0]
     ssm = cfg.ssm
-    H, P = ssm.num_heads(cfg.d_model), ssm.head_dim
+    H, P = p["A_log"].shape[0], ssm.head_dim
     z, u, dt_raw = _proj_split(p, x, cfg)                 # (B,1,*)
-    # conv: window = [conv_state, u_t]
-    win = torch.cat([cache["conv"].to(u.dtype), u], dim=1)
-    y_conv = torch.einsum("bwc,wc->bc", win, p["conv_w"].to(u.dtype))
-    y_conv = F.silu(y_conv + p["conv_b"].to(u.dtype))    # (B,C)
-    xin, Bm, Cm = _post_conv_split(y_conv, cfg)           # (B,*)
+    sharded = channels is not None
+    # conv: window = [conv_state, u_t], every channel
+    win = torch.cat([cache["conv"].to(u.dtype),
+                     _whole_channels(u, di) if sharded else u], dim=1)
+    conv_w, conv_b = _rank_conv(p, channels)
+    mine = win if channels is None else win.index_select(2, channels)
+    y_conv = torch.einsum("bwc,wc->bc", mine, conv_w.to(u.dtype))
+    y_conv = F.silu(y_conv + conv_b.to(u.dtype))         # (B,C)
+    xin, Bm, Cm = _post_conv_split(y_conv, cfg, di)       # (B,*)
     dt = F.softplus(dt_raw[:, 0].to(f32) + p["dt_bias"].to(f32))   # (B,H)
     A = -torch.exp(p["A_log"].to(f32))
     a = torch.exp(dt * A)                                 # (B,H)
@@ -254,8 +311,11 @@ def ssm_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig):
     y = torch.einsum("bhpn,bn->bhp", state, Cm.to(f32))
     y = y + xh * p["D"].to(f32)[None, :, None]
     y = y.reshape(B, 1, H * P).to(x.dtype)
-    y = _rmsnorm_gated(y, z, p["norm_scale"], cfg.norm_eps)
+    y = _rmsnorm_gated(y, z, p["norm_scale"], cfg.norm_eps,
+                       width=ssm.d_inner(cfg.d_model) if sharded else None)
     out = y @ p["wo"].to(y.dtype)
+    if points:
+        out = tp_exit(out, partial=sharded)
     cache["state"].copy_(state)
     cache["conv"].copy_(win[:, 1:])
     return out, cache

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import InputShape, ModelConfig, RunConfig
 from repro_torch.core.actshard import param_use_scope, tp_train_scope
 from repro_torch.core.zero import Layout
 from repro_torch.models.model import AUX_KEYS, hidden_len, loss_fn
@@ -39,7 +39,7 @@ def init_opt_state_sharded(params, opt: OptimizerConfig, layout: Layout):
 
 
 def make_train_step(cfg: ModelConfig, run: RunConfig, mesh,
-                    opt: OptimizerConfig):
+                    opt: OptimizerConfig, local_batch: bool = False):
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
     metrics)``.  ``params`` and ``opt_state`` are this rank's shards (the
     whole trees on a one-cell mesh), ``batch`` the global batch: (B, ...)
@@ -48,19 +48,28 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, mesh,
     B/n, ...)``), of which the rank takes its block; the gradients are
     summed into an f32 accumulator (bf16 under ``grad_reduce_bf16``) in
     the ZeRO gradient layout and, like the metrics, averaged over the
-    microbatches."""
+    microbatches.
+
+    ``local_batch`` makes ``batch`` this rank's rows as JAX's
+    ``batch_shardings`` lays the global batch out (``Layout.batch_rows``,
+    the dry run's arguments); microbatch i is then its rows ``[i * b/n,
+    (i+1) * b/n)``.  The collectives are the same as the global batch's,
+    and so is the step's sum over the global batch; only which rows share
+    a microbatch differs."""
     layout = Layout(cfg, mesh, run)
     n = run.microbatches
     # JAX casts in the microbatch loop only
     red_dtype = torch.bfloat16 if (run.grad_reduce_bf16 and n > 1) else None
     use = layout.param_use(grad_dtype=red_dtype)
     world = layout.world > 1
-    data_group = mesh.group("data")
+    data_group = layout.batch_group
     keys = ("loss", "xent") + AUX_KEYS
     owned = [layout.owned(leaf) for leaf in layout.leaves] if world else None
     norm_group = dist.group.WORLD if world else None
 
     def rank_rows(batch, rows: int):
+        if local_batch:
+            return batch
         start, count = layout.batch_rows(rows)
         if count == rows:
             return batch
@@ -138,3 +147,24 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, mesh,
     step.grads = lambda params, batch: grads_of(
         params, batch, next(iter(batch.values())).shape[0])
     return step
+
+
+def train_step_lowering_args(cfg: ModelConfig, run: RunConfig, mesh,
+                             shape: InputShape, opt: OptimizerConfig):
+    """This rank's (params, opt_state, batch) on the ``meta`` device: its
+    parameter shards, its optimizer-layout moments and its rows of the
+    batch (``make_train_step(..., local_batch=True)``) — the dry run's
+    counterpart of JAX's abstract arguments."""
+    from repro_torch.core import sharding as shd
+    from repro_torch.models.init import abstract_params
+    from repro_torch.models.inputs import train_input_specs
+
+    layout = Layout(cfg, mesh, run)
+    params = layout.local_meta(abstract_params(cfg),
+                               shd.param_shardings(cfg, mesh, run))
+    opt_state = init_opt_state_sharded(params, opt, layout)
+    rows = layout.batch_rows(shape.global_batch)[1]
+    batch = {k: torch.empty((rows,) + tuple(v.shape[1:]), dtype=v.dtype,
+                            device="meta")
+             for k, v in train_input_specs(cfg, shape).items()}
+    return params, opt_state, batch

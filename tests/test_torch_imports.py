@@ -1,7 +1,9 @@
 """The port stands alone: every module of ``repro_torch`` and
 ``chip_smoke.py`` imports in a fresh interpreter whose import hook refuses
 ``jax`` and ``repro`` (the exact top-level names), and ``triton``; no
-kernel module builds or looks for ``nvcc`` at import.  The serve and
+kernel module builds or looks for ``nvcc`` at import, and no module
+initialises a process group (the dry run's fake world among them).
+Every module of the JAX package has a same-path twin.  The serve and
 train CLIs run every model family on the CPU at reduced size, and the
 serve CLI two replicas behind the router."""
 import contextlib
@@ -38,9 +40,11 @@ for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 sys.path.insert(0, sys.argv[1])
 importlib.import_module("chip_smoke")
 from repro_torch.kernels import build
+import torch.distributed as dist
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print(json.dumps({"modules": mods, "leaked": leaked,
-                  "libs": len(build._libs)}))
+                  "libs": len(build._libs),
+                  "process_group": dist.is_initialized()}))
 """
 
 
@@ -57,6 +61,7 @@ def test_port_imports_without_jax_repro_or_triton(tmp_path):
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert out["leaked"] == []
     assert out["libs"] == 0                      # nothing built at import
+    assert out["process_group"] is False         # the dry run's world too
     want = {"repro_torch." + m.name for m in pkgutil.walk_packages(
         [str(ROOT / "src" / "repro_torch")])}
     for pkg in ("configs", "models", "kernels", "policy", "monitoring",
@@ -76,9 +81,21 @@ def test_port_imports_without_jax_repro_or_triton(tmp_path):
                 "configs.musicgen_large", "serving.router",
                 "serving.autoscale", "core.parallelism", "core.sharding",
                 "core.zero", "core.pipeline", "core.actshard",
-                "launch.mesh", "training.train_step"):
+                "launch.mesh", "training.train_step", "launch.dryrun",
+                "launch.hlo", "serving.serve_step"):
         assert f"repro_torch.{mod}" in out["modules"]
     assert not (tmp_path / "build").exists()
+
+
+def test_every_jax_module_has_a_twin():
+    """Each module of the JAX package has a same-path counterpart in the
+    port."""
+    jax_root = ROOT / "src" / "repro"
+    port_root = ROOT / "src" / "repro_torch"
+    missing = [str(f.relative_to(jax_root))
+               for f in sorted(jax_root.rglob("*.py"))
+               if not (port_root / f.relative_to(jax_root)).is_file()]
+    assert missing == []
 
 
 def test_no_source_names_jax_or_repro():
