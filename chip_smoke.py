@@ -3,6 +3,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels-only   # build, check and time every
                                            # kernel, then stop
+    python3 chip_smoke.py --only resume examples   # build, run these of
+                                           # phases 13-16, then stop
 
 Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
 
@@ -123,20 +125,42 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
    (a parallel step through gloo takes 10-40 s): full-width stablelm-3b
    under fsdp_tp ZeRO 3 on 2 x 2 ranks (the JAX CLI's default), tp on
    1 x 2 and fsdp ZeRO 3 on 2 x 1; full-width mamba2-780m under dp ZeRO
-   1 and 2 on 2 x 1; each config first on one rank in this process.
+   1 and 2 on 2 x 1 and tp on 1 x 2; qwen2-moe-a2.7b at full width cut
+   to 4 layers under tp on 1 x 2 (expert parallel) and fsdp ZeRO 3 on 2
+   x 1; each config first on one rank in this process (qwen2-moe's with
+   one more step traced: the device time of the expert einsums against
+   the step's, logged).
    Each rank logs its step time, the collectives' count and share of the
    step (timed on the host), its launches, and its peak memory against
    its reckoned shard (f32 params, gradients, AdamW m and v),
    transients and activations.  Then f32 at 4 layers of stablelm-3b, two
-   steps a run: dp ZeRO 1 and 2, fsdp ZeRO 2 and 3, tp, fsdp_tp ZeRO 3,
-   each against the one-rank run.  Fail on a non-finite loss or a first
-   loss far from ln(vocab), ranks whose losses differ, bf16 losses more
+   steps a run: dp ZeRO 1 and 2, fsdp ZeRO 2 and 3, tp, tp with
+   seq_parallel, fsdp_tp ZeRO 3; mamba2-780m under tp; qwen2-moe-a2.7b
+   at 2 layers under fsdp ZeRO 3 and tp; each against the one-rank run.
+   Fail on a non-finite loss or a first loss far from ln(vocab), ranks
+   whose losses differ, bf16 losses more
    than 0.05 (phase 8's constant term) from the one-rank run's, f32
    losses beyond 1e-5 relative or final parameters beyond 1e-4 of the
    largest magnitude, a rank's peak above its reckoned bytes + 1 GiB, or
    an attention (dense) or scan (SSM) launch count other than two a
    layer a step on a rank.
-14. dry run — the production dry run (``repro_torch.launch.dryrun``:
+14. resume — a sharded checkpoint resumed on other meshes: full-width
+   mamba2-780m (f32 weights and AdamW, bf16 compute, phase 13's tokens)
+   under dp ZeRO 2 on 2 x 1 ranks sharing the card takes a step, saves
+   through ``Trainer.save`` (``Streamed`` leaves gathered a slice at a
+   time) and takes step 2; the checkpoint resumes (``maybe_resume``,
+   each rank reading its blocks) under tp on 1 x 2, where the SSD heads
+   split, and on one rank in this process, each taking step 2; then the
+   same in f32 at 4 layers.  Free disk is checked first; the checkpoints
+   are removed at the end.  Each rank logs save and restore seconds,
+   GB/s and the checkpoint's bytes.  Fail on restored state whose
+   digests (SHA-1 of every whole leaf) differ from the saving run's at
+   step 1, a resumed step-2 loss more than 0.05 from the uninterrupted
+   run's (f32: loss or gradient norm beyond 1e-5 relative), a rank's
+   peak while saving or restoring above the memory it held before +
+   the largest slice handed out + 1 GiB, or a scan launch count other
+   than two a layer a step on a rank.
+15. dry run — the production dry run (``repro_torch.launch.dryrun``:
    one rank's program on ``meta`` tensors in a fake world of the mesh's
    size, the plain route, no card) held to phase 13's card runs: each
    bf16 run's collectives by kind and the bytes handed over must equal
@@ -152,7 +176,15 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
    beside the card's phases: each combination's seconds, its record
    under ``results/dryrun_torch`` and ``benchmarks/bench_roofline.py``'s
    table (data-sheet peaks: a reckoning, not a card speed).
-15. summary — the kernels line, then the device line last.
+16. examples — each twin of ``examples/torch`` that runs on the card as
+   its own ``python3 examples/torch/<name>.py --device cuda`` process,
+   all started together beside phase 15 (``train_cluster`` at full size
+   for 40 steps; ``tp_serving`` and ``pipeline_parallel`` on two ranks
+   sharing the card over gloo), and the host-only twins
+   (``slurm_workflow``, ``multi_tenant``), started on the CPU after the
+   build; fail on a non-zero exit or a last line other than the twin's
+   own.  Each run's seconds are logged.
+17. summary — the kernels line, then the device line last.
 
 Exits non-zero on any failure, and when no card is present.
 """
@@ -2341,10 +2373,12 @@ TRAIN_PAR_RUNS = (
     ("mamba2-780m dp z1 2x1", "mamba2-780m", (2, 1), "dp", 1, {}),
     ("mamba2-780m dp z2 2x1", "mamba2-780m", (2, 1), "dp", 2, {}),
     ("mamba2-780m tp 1x2", "mamba2-780m", (1, 2), "tp", 3, {}),
-    ("qwen2-moe-a2.7b tp 1x2", "qwen2-moe-a2.7b", (1, 2), "tp", 3, {}))
-#: its f32 identity runs at 4 layers, each against the one-rank run of
-#: the same config: (label, arch, (data, model), strategy, ZeRO stage,
-#: RunConfig knobs)
+    ("qwen2-moe-a2.7b tp 1x2", "qwen2-moe-a2.7b", (1, 2), "tp", 3, {}),
+    ("qwen2-moe-a2.7b fsdp z3 2x1", "qwen2-moe-a2.7b", (2, 1), "fsdp", 3,
+     {}))
+#: its f32 identity runs at 4 layers (qwen2-moe-a2.7b at
+#: ``MOE_F32_LAYERS``), each against the one-rank run of the same config:
+#: (label, arch, (data, model), strategy, ZeRO stage, RunConfig knobs)
 TRAIN_PAR_F32 = (("dp z1 2x1", "stablelm-3b", (2, 1), "dp", 1, {}),
                  ("dp z2 2x1", "stablelm-3b", (2, 1), "dp", 2, {}),
                  ("fsdp z2 2x1", "stablelm-3b", (2, 1), "fsdp", 2, {}),
@@ -2354,10 +2388,18 @@ TRAIN_PAR_F32 = (("dp z1 2x1", "stablelm-3b", (2, 1), "dp", 1, {}),
                   {"seq_parallel": True}),
                  ("mamba2-780m tp 1x2", "mamba2-780m", (1, 2), "tp", 3, {}),
                  ("fsdp_tp z3 2x2", "stablelm-3b", (2, 2), "fsdp_tp", 3,
-                  {}))
+                  {}),
+                 ("qwen2-moe-a2.7b fsdp z3 2x1", "qwen2-moe-a2.7b", (2, 1),
+                  "fsdp", 3, {}),
+                 ("qwen2-moe-a2.7b tp 1x2", "qwen2-moe-a2.7b", (1, 2), "tp",
+                  3, {}))
 #: qwen2-moe-a2.7b's depth in the phase: 4 layers of 60 + 4 experts hold
 #: ~2.91 B parameters, 43.3 GiB of f32 state on one rank
 MOE_LAYERS = 4
+#: its depth in the f32 identity runs: 2 layers hold ~1.76 B parameters,
+#: 26.3 GiB of f32 state on one rank (ZeRO 3 gathers the f32 weights
+#: through gloo, ~1 GiB/s: 4 layers would take about a minute a step)
+MOE_F32_LAYERS = 2
 #: f32 identity: losses and gradient norms relative, final parameters
 #: against the largest magnitude of the one-rank run's, their update over
 #: the run (final - initial, the whole tree) relative L2; bf16 runs:
@@ -2559,7 +2601,8 @@ def par_run(trainer, steps: int, device) -> dict:
 
 def _par_cfgs(reduced: bool):
     """The phase's configs: the bf16 runs' by arch (qwen2-moe-a2.7b cut
-    to ``MOE_LAYERS`` layers) and the f32 identity runs' at 4 layers."""
+    to ``MOE_LAYERS`` layers) and the f32 identity runs' at 4 layers
+    (qwen2-moe-a2.7b at ``MOE_F32_LAYERS``)."""
     from repro_torch.configs import get_config, get_reduced_config
 
     get = get_reduced_config if reduced else get_config
@@ -2569,7 +2612,9 @@ def _par_cfgs(reduced: bool):
     cfgs["qwen2-moe-a2.7b"] = dataclasses.replace(
         moe, num_layers=min(moe.num_layers, MOE_LAYERS))
     f32cfgs = {a: dataclasses.replace(cfgs[a], dtype="float32",
-                                      num_layers=min(cfgs[a].num_layers, 4))
+                                      num_layers=min(cfgs[a].num_layers, (
+                                          MOE_F32_LAYERS if cfgs[a].moe
+                                          else 4)))
                for a in {e[1] for e in TRAIN_PAR_F32}}
     return cfgs, f32cfgs
 
@@ -2671,6 +2716,61 @@ def shard_kernel_checks(cfgs, m: int, B: int, S: int):
         f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {b:.4f} ms ({by})")
 
 
+def expert_gemm_share(trainer, device) -> None:
+    """One more step of a one-rank MoE trainer under ``torch.profiler``
+    (host ops with their input shapes, and the device): the device time
+    of ``models.moe.moe_apply``'s einsums, forward, recomputation and
+    backward, against the step's device-busy time.  The einsums run as
+    ``aten::bmm``: the expert FFN's over the experts (both inputs lead
+    with E, one holds the expert ``d_ff``), dispatch and combine over the
+    token groups (one input holds the E x C slots).  Logged, not a
+    gate."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = trainer.cfg
+    moe = cfg.moe
+    T = trainer.shape.global_batch * trainer.shape.seq_len
+    gs = min(moe.group_size, T)
+    E = moe.num_experts
+    C = max(4, -(-math.ceil(gs * moe.top_k / E * moe.capacity_factor)
+                 // 4) * 4)
+    trainer.tcfg.steps = trainer.step + 1
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        trainer.train(log=lambda *_: None)
+        sync(device)
+        wall = time.perf_counter() - t0
+    busy_ms, spans, _ = device_busy(prof)
+    ffn = route = 0.0
+    n_ffn = n_route = 0
+    for e in prof.events():
+        if e.name != "aten::bmm" or len(e.input_shapes) < 2:
+            continue
+        a, b = e.input_shapes[:2]
+        if not a or not b:
+            continue
+        if a[0] == b[0] == E and moe.d_ff in (*a, *b):
+            ffn += e.device_time_total
+            n_ffn += 1
+        elif a[0] == b[0] and E * C in (*a, *b):
+            route += e.device_time_total
+            n_route += 1
+    ffn, route = ffn / 1e3, route / 1e3
+    if not spans:
+        log("  expert GEMMs: device time not measured (the trace holds no "
+            "device events)")
+        return
+    log(f"  expert GEMMs of one traced one-rank {cfg.name} step "
+        f"({cfg.num_layers} layers, {E} experts, capacity {C} a group of "
+        f"{gs}): expert FFN einsums {ffn:.2f} ms ({n_ffn} bmm), dispatch "
+        f"and combine {route:.2f} ms ({n_route} bmm), together "
+        f"{(ffn + route) / busy_ms:.1%} of the step's {busy_ms:.2f} ms of "
+        f"device-busy time (wall {wall * 1e3:.1f} ms traced, host ops "
+        "recorded)")
+
+
 def one_rank_train(cfg, S, B, steps, device, strategy="fsdp_tp") -> tuple:
     """The one-rank run the parallel runs are held to: its result and its
     trainer."""
@@ -2688,14 +2788,15 @@ def train_parallel_phase(args, device="cuda", reduced=False) -> dict:
     stablelm-3b under fsdp_tp ZeRO 3 on 2 x 2 ranks, tp on 1 x 2 and fsdp
     ZeRO 3 on 2 x 1, full-width mamba2-780m under dp ZeRO 1 and 2 on 2 x
     1 and tp on 1 x 2, qwen2-moe-a2.7b at full width and ``MOE_LAYERS``
-    layers under tp on 1 x 2 (``reduced``: the reduced configs, for a
-    rehearsal on the CPU), each ``args["steps"]`` steps of
-    ``args["batch"]`` x ``args["seq_len"]`` tokens; then the f32
-    identity runs of ``TRAIN_PAR_F32`` at 4 layers, ``args["f32_steps"]``
-    steps each.  On the card the two kernels first run at the tp ranks'
+    layers under tp on 1 x 2 and fsdp ZeRO 3 on 2 x 1 (``reduced``: the
+    reduced configs, for a rehearsal on the CPU), each ``args["steps"]``
+    steps of ``args["batch"]`` x ``args["seq_len"]`` tokens; then the f32
+    identity runs of ``TRAIN_PAR_F32`` at 4 layers (qwen2-moe-a2.7b at
+    ``MOE_F32_LAYERS``), ``args["f32_steps"]`` steps each.  On the card the two kernels first run at the tp ranks'
     shard shapes against their plain versions
     (:func:`shard_kernel_checks`).  One-rank runs in this process first:
-    each bf16 config and each f32 one.  Gates: finite losses, the first
+    each bf16 config and each f32 one; on the card the MoE config's takes
+    one more step, traced (:func:`expert_gemm_share`).  Gates: finite losses, the first
     within 1.5 of ln(vocab); the ranks' losses and gradient norms equal;
     bf16 losses within ``PAR_BF16_TOL`` of the one-rank run's and
     gradient norms within ``PAR_BF16_TOL`` relative; f32 losses and
@@ -2734,6 +2835,8 @@ def train_parallel_phase(args, device="cuda", reduced=False) -> dict:
             + f"; {r['step_s']:.3f} s/step, {B * S / r['step_s']:,.0f} "
             f"tok/s; state {r['held_gib']:.2f} GiB, peak "
             f"{r['peak_gib']:.2f} GiB; launches {r['launches']}")
+        if on_card and cfg.moe is not None:
+            expert_gemm_share(t, device)
         del t
         gc.collect()
         empty_cache(device)
@@ -2874,6 +2977,317 @@ def train_parallel_phase(args, device="cuda", reduced=False) -> dict:
     one_rank = {arch: {"step_s": r["step_s"], "peak_gib": r["peak_gib"]}
                 for arch, r in refs.items()}
     return {"runs": runs, "identity": ident, "one_rank": one_rank}
+
+
+# ---------------------------------------------------------------- resume ----
+
+#: the resume phase: full-width mamba2-780m (f32 weights and AdamW, bf16
+#: compute) saves under dp ZeRO 2 on 2 x 1 ranks after one step and
+#: resumes on other meshes; then the same at ``RESUME_F32_LAYERS`` layers
+#: in f32.  (label, (data, model), strategy, ZeRO stage) of the saving
+#: run and of the resumed runs on ranks; one rank in this process too
+RESUME_SAVE = ("dp z2 2x1", (2, 1), "dp", 2)
+RESUME_ON = (("tp 1x2", (1, 2), "tp", 3),)
+RESUME_F32_LAYERS = 4
+
+
+def state_digests(trainer) -> list:
+    """SHA-1 of the bytes of every whole leaf of a trainer's state (its
+    parameters, AdamW m and v, the step counter), in the checkpoint's
+    leaf order, each leaf gathered alone over the ranks (collective):
+    rank 0's list ([] on the other ranks)."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.tree import leaves_with_path
+
+    def sha1(a):
+        return hashlib.sha1(a.numpy()).hexdigest()
+
+    specs = trainer._leaf_specs()
+    out = []
+    # hashlib lets go of the interpreter lock: the leaves hash in threads
+    # while the next ones are gathered and copied to the host
+    with ThreadPoolExecutor(4) as pool:
+        for path, t in leaves_with_path({"params": trainer.params,
+                                         "opt": trainer.opt_state}):
+            whole = trainer.layout.gather(t, specs[path][0]) \
+                if path in specs else t
+            if trainer.rank == 0:
+                a = whole.detach().cpu().contiguous()
+                if a.dtype == torch.bfloat16:
+                    a = a.view(torch.int16)
+                out.append(pool.submit(sha1, a))
+            del whole
+    return [f.result() for f in out]
+
+
+def timed_checkpoint(trainer, call, device) -> dict:
+    """``call()`` (the trainer's ``save`` or ``maybe_resume``) with the
+    peak memory reset just before it: its seconds on the host (ending in
+    a synchronize), the memory held before it and its peak (on the card),
+    and the largest part that ``Layout.gather_slices`` handed out during
+    it, in bytes."""
+    lay = trainer.layout
+    gather_slices = lay.gather_slices
+    biggest = [0]
+
+    def recorded(local, spec):
+        for index, part in gather_slices(local, spec):
+            biggest[0] = max(biggest[0], part.numel() * part.element_size())
+            yield index, part
+
+    on_card = torch.device(device).type == "cuda"
+    lay.gather_slices = recorded
+    try:
+        sync(device)
+        held = torch.cuda.memory_allocated() if on_card else 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = call()
+        sync(device)
+        secs = time.perf_counter() - t0
+    finally:
+        del lay.gather_slices
+    return {"s": secs, "held": held, "slice": biggest[0], "result": result,
+            "peak": (torch.cuda.max_memory_allocated() if on_card
+                     else float("nan"))}
+
+
+def _resume_steps(trainer, steps: int) -> dict:
+    """Train to ``steps`` with the launch counts set to 0 just before;
+    the losses and gradient norms of the steps taken, and the launches."""
+    from repro_torch.kernels import ops
+
+    start = len(trainer.history)
+    trainer.tcfg.steps = steps
+    ops.reset_launch_counts()
+    trainer.train(log=lambda *_: None)
+    sync(trainer.device)
+    kept = trainer.history[start:]
+    return {"steps": [h["step"] for h in kept],
+            "losses": [h["loss"] for h in kept],
+            "grad_norms": [h["grad_norm"] for h in kept],
+            "launches": ops.launch_counts()}
+
+
+def _resumed(trainer, device) -> dict:
+    """Resume a fresh trainer (its state initialised first) from its
+    checkpoint directory, timed, digest its state and take the next
+    step."""
+    trainer.init_state()
+    rest = timed_checkpoint(trainer, trainer.maybe_resume, device)
+    if rest["result"] is not True or trainer.step != 1:
+        raise AssertionError(f"resume: maybe_resume gave "
+                             f"{rest['result']} at step {trainer.step}")
+    digests = state_digests(trainer)
+    return {"restore": rest, "digests": digests,
+            **_resume_steps(trainer, 2)}
+
+
+def resume_rank(mesh, jobs: list, S: int, B: int) -> list:
+    """One rank of the resume phase, for each (kind, cfg, checkpoint dir)
+    of ``jobs``: the saving run (``RESUME_SAVE``: a step, a save, the
+    state's digests, a second step: the uninterrupted run), then each
+    run of ``RESUME_ON`` resumed from its checkpoint."""
+    from repro_torch.launch.mesh import make_mesh
+
+    dev = mesh.device
+    world = mesh.devices.size
+    meshes = {s: make_mesh(*s, devices=[dev] * world, backend="gloo")
+              for s in [RESUME_SAVE[1]] + [r[1] for r in RESUME_ON]}
+    out = []
+    for kind, cfg, ckpt_dir in jobs:
+        label, shape, strategy, zero = RESUME_SAVE
+        t = par_trainer(cfg, meshes[shape], strategy, zero, S, B, dev)
+        t.tcfg.ckpt_dir = ckpt_dir
+        t.init_state()
+        first = _resume_steps(t, 1)
+        save = timed_checkpoint(t, t.save, dev)
+        digests = state_digests(t)
+        second = _resume_steps(t, 2)
+        run = {"kind": kind, "label": label, "save": save,
+               "digests": digests, "first": first, "second": second,
+               "resumed": []}
+        del t
+        gc.collect()
+        empty_cache(dev)
+        for _, shape, strategy, zero in RESUME_ON:
+            t = par_trainer(cfg, meshes[shape], strategy, zero, S, B, dev)
+            t.tcfg.ckpt_dir = ckpt_dir
+            run["resumed"].append(_resumed(t, dev))
+            del t
+            gc.collect()
+            empty_cache(dev)
+        out.append(run)
+    return out
+
+
+def resume_phase(args, device="cuda", reduced=False) -> dict:
+    """A sharded checkpoint resumed on other meshes, through the port's
+    ``Trainer`` (``save``: ``Streamed`` leaves gathered a slice at a
+    time; ``maybe_resume``: ``restore(select=)``, each rank reading its
+    blocks), on 2 ranks that share ``device`` over gloo: full-width
+    mamba2-780m (``reduced``: the reduced config, for a rehearsal on the
+    CPU), f32 weights and AdamW state, bf16 compute, ``args["batch"]`` x
+    ``args["seq_len"]`` tokens a step.  ``RESUME_SAVE`` takes a step,
+    saves and takes step 2 (the uninterrupted run); each of
+    ``RESUME_ON`` and one rank in this process resume step 1 and take
+    step 2.  Then the same in f32 at ``RESUME_F32_LAYERS`` layers.  Free
+    disk is checked first, and the checkpoints are removed at the end.
+    Gates: the restored state's digests (every whole leaf) equal the
+    saving run's at step 1; step 2's loss within ``PAR_BF16_TOL`` of the
+    uninterrupted run's (f32: loss and gradient norm within
+    ``PAR_LOSS_TOL`` relative); on the card each rank's peak while saving
+    and while restoring at most the memory it held before the call + the
+    largest slice handed out + 1 GiB, and the scan launched twice a layer
+    a step on every rank.  Returns the bf16 runs' launches (main-path
+    launches) and each resumed run's step-2 gaps."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.launch.mesh import launch_ranks, single_device_mesh
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    if on_card and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    S, B = args["seq_len"], args["batch"]
+    cfg = (get_reduced_config if reduced else get_config)("mamba2-780m")
+    f32cfg = dataclasses.replace(cfg, dtype="float32", num_layers=min(
+        cfg.num_layers, RESUME_F32_LAYERS))
+    t_phase = time.perf_counter()
+    gc.collect()
+    empty_cache(device)
+    root = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    jobs = [("bf16", cfg, str(Path(root) / "bf16")),
+            ("f32", f32cfg, str(Path(root) / "f32"))]
+    # one checkpoint of each: f32 params + f32 AdamW m, v
+    need = sum(3 * 4 * c.param_count() for _, c, _ in jobs)
+    free = shutil.disk_usage(root).free
+    log(f"  checkpoint dir {root}: {free / 1e9:.1f} GB free, the phase "
+        f"writes {need / 1e9:.2f} GB")
+    if free < need + 2**30:
+        shutil.rmtree(root, ignore_errors=True)
+        raise AssertionError(
+            f"resume: {root} has {free / 1e9:.1f} GB free; the checkpoints "
+            f"need {need / 1e9:.1f} GB (set TMPDIR to a larger disk)")
+    try:
+        t0 = time.perf_counter()
+        ranks = launch_ranks(resume_rank, *RESUME_SAVE[1],
+                             devices=[device] * 2, backend="gloo",
+                             threads=None if on_card else 1,
+                             args=(jobs, S, B))
+        t_ranks = time.perf_counter() - t0
+        for i, (kind, c, ckpt_dir) in enumerate(jobs):
+            t = par_trainer(c, single_device_mesh(device), "fsdp_tp", 3, S,
+                            B, device)
+            t.tcfg.ckpt_dir = ckpt_dir
+            ranks[0][i]["resumed"].append(_resumed(t, device))
+            del t
+            gc.collect()
+            empty_cache(device)
+        sizes = [sum(f.stat().st_size for f in Path(d).rglob("*")
+                     if f.is_file()) for _, _, d in jobs]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches: dict = {}
+    runs = []
+    for i, (kind, c, _) in enumerate(jobs):
+        per = [rk[i] for rk in ranks]
+        ref = per[0]
+        nbytes = sizes[i]
+        ssm_layers = sum(k == "ssm" for k in c.layer_kinds())
+        # the saving run, rank by rank: the save's seconds and peak
+        for k, r in enumerate(per):
+            sv = r["save"]
+            limit = sv["held"] + sv["slice"] + 2**30
+            log(f"  {kind} {c.num_layers} layers, {r['label']} rank {k}: "
+                f"step 1 loss {r['first']['losses'][0]:.6f}; save "
+                f"{sv['s']:.2f} s ({nbytes / 1e9:.2f} GB, "
+                f"{nbytes / 1e9 / sv['s']:.2f} GB/s), peak "
+                f"{sv['peak'] / 2**30:.2f} GiB against held "
+                f"{sv['held'] / 2**30:.2f} + largest slice "
+                f"{sv['slice'] / 2**20:.1f} MiB + 1 GiB = "
+                f"{limit / 2**30:.2f} GiB; step 2 loss "
+                f"{r['second']['losses'][0]:.6f} (uninterrupted)")
+            if on_card and sv["peak"] > limit:
+                raise AssertionError(f"resume {kind}: rank {k} peaked at "
+                                     f"{sv['peak']} bytes saving, over "
+                                     f"{limit}")
+            want = 2 * 2 * ssm_layers           # 2 steps, remat reruns
+            got = r["first"]["launches"]["ssd_scan"] + \
+                r["second"]["launches"]["ssd_scan"]
+            if on_card and got != want:
+                raise AssertionError(f"resume {kind}: the saving run "
+                                     f"launched ssd_scan {got} times on "
+                                     f"rank {k}, not {want}")
+            if kind == "bf16":
+                for stage in ("first", "second"):
+                    for name, n in r[stage]["launches"].items():
+                        launches[name] = launches.get(name, 0) + n
+        unint = ref["second"]
+        # each resumed run's ranks (rank 0 holds the digests), then the
+        # one-rank run of this process
+        resumed = [(label, [rk[i]["resumed"][j] for rk in ranks])
+                   for j, (label, *_) in enumerate(RESUME_ON)]
+        resumed.append(("one rank", [ref["resumed"][-1]]))
+        for label, everyone in resumed:
+            x = everyone[0]
+            same = x["digests"] == ref["digests"]
+            gap = abs(x["losses"][0] - unint["losses"][0])
+            rel = gap / abs(unint["losses"][0])
+            grel = abs(x["grad_norms"][0] - unint["grad_norms"][0]) / abs(
+                unint["grad_norms"][0])
+            for k, y in enumerate(everyone):
+                rs = y["restore"]
+                limit = rs["held"] + ref["save"]["slice"] + 2**30
+                log(f"  {kind}, resumed on {label}, rank {k}: restore "
+                    f"{rs['s']:.2f} s ({nbytes / 1e9 / rs['s']:.2f} GB/s "
+                    f"of the {nbytes / 1e9:.2f} GB checkpoint), peak "
+                    f"{rs['peak'] / 2**30:.2f} GiB against held "
+                    f"{rs['held'] / 2**30:.2f} + largest saved slice "
+                    f"{ref['save']['slice'] / 2**20:.1f} MiB + 1 GiB = "
+                    f"{limit / 2**30:.2f} GiB; launches {y['launches']}")
+                if on_card and rs["peak"] > limit:
+                    raise AssertionError(
+                        f"resume {kind} on {label}: rank {k} peaked at "
+                        f"{rs['peak']} bytes restoring, over {limit}")
+                if on_card and y["launches"]["ssd_scan"] != 2 * ssm_layers:
+                    raise AssertionError(
+                        f"resume {kind} on {label}: ssd_scan launched "
+                        f"{y['launches']['ssd_scan']} times on rank {k}, "
+                        f"not {2 * ssm_layers}")
+                if y["losses"] != x["losses"]:
+                    raise AssertionError(f"resume {kind} on {label}: the "
+                                         "ranks' losses differ")
+                if kind == "bf16":
+                    for name, n in y["launches"].items():
+                        launches[name] = launches.get(name, 0) + n
+            log(f"  {kind}, resumed on {label}: {len(x['digests'])} leaves' "
+                f"digests {'equal' if same else 'DIFFER from'} the saving "
+                f"run's at step 1; step 2 loss {x['losses'][0]:.6f} against "
+                f"the uninterrupted {unint['losses'][0]:.6f} (difference "
+                f"{gap:.2e}, {rel:.2e} relative), gradient norm "
+                f"{x['grad_norms'][0]:.6f} against "
+                f"{unint['grad_norms'][0]:.6f} ({grel:.2e} relative)")
+            if x["steps"] != [2] or not same:
+                raise AssertionError(f"resume {kind} on {label}: steps "
+                                     f"{x['steps']}, digests equal {same}")
+            if kind == "bf16" and not gap <= PAR_BF16_TOL:
+                raise AssertionError(f"resume bf16 on {label}: step 2 loss "
+                                     f"{gap} from the uninterrupted run's")
+            if kind == "f32" and not (rel <= PAR_LOSS_TOL
+                                      and grel <= PAR_LOSS_TOL):
+                raise AssertionError(f"resume f32 on {label}: beyond "
+                                     f"{PAR_LOSS_TOL} relative")
+            runs.append({"kind": kind, "label": label, "gap": gap,
+                         "rel": rel, "grel": grel})
+    log(f"  ranks' launch {t_ranks:.1f} s, phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"runs": runs, "launches": launches}
 
 
 # -------------------------------------------------------------- dry run ----
@@ -3131,6 +3545,123 @@ def dryrun_phase(par, tp, args, device="cuda", reduced=False,
     return {"census": census, "subset": [c for c, _, _ in subset]}
 
 
+# -------------------------------------------------------------- examples ----
+
+#: the examples phase: each twin of ``examples/torch`` that runs on the
+#: card, the arguments it takes there (``train_cluster`` at full size
+#: for 40 steps, in a fresh ``--ckpt-dir``; the serving tour's
+#: sustained-load window 100 steps), and a pattern its last line of
+#: output must match
+EXAMPLES_CARD = (
+    ("quickstart", (), r"^train_step_seconds\s+n=20\s"),
+    ("train_cluster", ("--steps", "40"),
+     r"^1\s+train_repro_100m\s.*\sCOMPLETED\s"),
+    ("serve_batch", (), r"^req 2: prompt\[\d+\] -> \[.*\]\.\.\.$"),
+    ("multi_tenant_serving", ("--load-steps", "100"),
+     r"^\s*Tokens/round:\s"),
+    ("elastic_serving", (), r"^replicas: \[.*\]  \(scale-ups total: \d+\)$"),
+    ("tp_serving", (), r"^greedy outputs identical across TP degrees: True$"),
+    ("pipeline_parallel", (), r"^after 10 steps: loss=\S+ \(decreasing\)$"))
+#: the host-only twins (a simulated clock; no job touches a device), run
+#: on the CPU beside the card's phases
+EXAMPLES_HOST = (
+    ("slurm_workflow", (), r"^1\s+long-train\s.*\sCOMPLETED\s"),
+    ("multi_tenant", (), r"^preemptions: 1; sweep finished at t=\d+s"))
+EXAMPLES_DIR = Path(__file__).resolve().parent / "examples" / "torch"
+
+
+def _example_cmd(name: str, device: str, extra=()) -> list:
+    return [sys.executable, str(EXAMPLES_DIR / f"{name}.py"), "--device",
+            device, *extra]
+
+
+def _example_env() -> dict:
+    import os
+
+    src = str(Path(__file__).resolve().parent / "src")
+    path = os.environ.get("PYTHONPATH")
+    return dict(os.environ, PYTHONPATH=src + (os.pathsep + path if path
+                                              else ""))
+
+
+def start_examples(specs, device: str) -> list:
+    """Start each twin of ``specs`` (``EXAMPLES_CARD`` or
+    ``EXAMPLES_HOST``) as its own process with ``--device device``, all
+    at once; a thread a process reads its output and notes when it
+    ended.  ``train_cluster`` writes its checkpoints to a fresh
+    directory.  Returns ``[(name, pattern, process, record)]`` for
+    :func:`examples_phase` (and :func:`stop_processes`)."""
+    import tempfile
+    import threading
+
+    started = []
+    for name, extra, pattern in specs:
+        record = {}
+        if name == "train_cluster":
+            record["tmp"] = tempfile.mkdtemp(prefix="chip_smoke_example_")
+            extra = (*extra, "--ckpt-dir", record["tmp"])
+        proc = subprocess.Popen(_example_cmd(name, device, extra),
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True,
+                                env=_example_env())
+        record["t0"] = time.perf_counter()
+
+        def wait(proc=proc, record=record):
+            record["out"], record["err"] = proc.communicate()
+            record["s"] = time.perf_counter() - record["t0"]
+
+        record["thread"] = threading.Thread(target=wait, daemon=True)
+        record["thread"].start()
+        started.append((name, pattern, proc, record))
+    return started
+
+
+def stop_processes(started) -> None:
+    """Kill what :func:`start_examples` started and is still running, and
+    remove its checkpoint directories."""
+    import shutil
+
+    for _, _, proc, record in started or ():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        if "tmp" in record:
+            shutil.rmtree(record["tmp"], ignore_errors=True)
+
+
+def _check_example(name, pattern, rc, out, err, secs, where) -> dict:
+    lines = out.rstrip("\n").splitlines()
+    last = lines[-1] if lines else ""
+    log(f"  {name} ({where}): exit {rc}, {secs:.1f} s, {len(lines)} lines;"
+        f" last: {last[:110]!r}")
+    if rc != 0 or not re.search(pattern, last):
+        tail = "\n    ".join((out + err).splitlines()[-30:])
+        raise AssertionError(f"examples: {name} exited {rc} or its last "
+                             f"line does not match {pattern!r}:\n    {tail}")
+    return {"name": name, "s": secs, "where": where}
+
+
+def examples_phase(started, where: str = "", timeout=600) -> list:
+    """Wait for the twins :func:`start_examples` ``started`` and check
+    each: fail on a non-zero exit or a last line that does not match its
+    pattern.  Returns each run's seconds (from its start to its end;
+    ``where`` says what ran beside it)."""
+    out = []
+    try:
+        for name, pattern, proc, record in started:
+            record["thread"].join(timeout)
+            if record["thread"].is_alive():
+                raise AssertionError(f"examples: {name} did not finish "
+                                     f"within {timeout} s")
+            out.append(_check_example(
+                name, pattern, proc.returncode, record["out"],
+                record["err"], record["s"],
+                " ".join(proc.args[2:4]) + where))
+    finally:
+        stop_processes(started)
+    return out
+
+
 # -------------------------------------------------------------- cluster ----
 
 def cluster_phase(tcfg, targs, scfg, sargs, reference, devices=None) -> dict:
@@ -3351,21 +3882,33 @@ PAR_ARGS = dict(seq_len=1024, batch=4, steps=1, f32_steps=2)
 def run_train_parallel(tcfg, cfg, at) -> dict:
     """Phase 13's header and run on the card."""
     pargs = PAR_ARGS
-    log(f"[13/15] {at()}: train parallel: full-width {cfg.name} (fsdp_tp "
+    log(f"[13/17] {at()}: train parallel: full-width {cfg.name} (fsdp_tp "
         f"ZeRO 3 on 2 x 2 ranks, tp on 1 x 2, fsdp ZeRO 3 on 2 x 1), "
         f"{tcfg.name} (dp ZeRO 1 and 2 on 2 x 1, tp on 1 x 2) and "
         f"qwen2-moe-a2.7b at full width, {MOE_LAYERS} layers (one rank, "
-        f"tp on 1 x 2: expert parallel), ranks sharing the card over "
-        f"gloo, seed-{SEED} f32 weights, bf16 compute, remat=layer, "
-        f"{pargs['batch']} x {pargs['seq_len']} tokens a step, "
-        f"{pargs['steps']} step(s) a run; then f32 at 4 layers against "
-        f"one rank, {pargs['f32_steps']} steps a run")
+        f"tp on 1 x 2: expert parallel, fsdp ZeRO 3 on 2 x 1), ranks "
+        f"sharing the card over gloo, seed-{SEED} f32 weights, bf16 "
+        f"compute, remat=layer, {pargs['batch']} x {pargs['seq_len']} "
+        f"tokens a step, {pargs['steps']} step(s) a run; then f32 at 4 "
+        f"layers ({MOE_F32_LAYERS} for qwen2-moe-a2.7b) against one rank, "
+        f"{pargs['f32_steps']} steps a run")
     return train_parallel_phase(pargs)
 
 
+def run_resume(tcfg, at) -> dict:
+    """Phase 14's header and run."""
+    log(f"[14/17] {at()}: resume: full-width {tcfg.name} (f32 weights and "
+        f"AdamW, bf16 compute, {PAR_ARGS['batch']} x "
+        f"{PAR_ARGS['seq_len']} tokens a step) saves under "
+        f"{RESUME_SAVE[0]} after step 1 and takes step 2; resumed on "
+        + ", ".join(r[0] for r in RESUME_ON) + " and one rank, each takes "
+        f"step 2; then the same in f32 at {RESUME_F32_LAYERS} layers")
+    return resume_phase(PAR_ARGS)
+
+
 def run_dryrun(tpar, tp, args, at, started) -> dict:
-    """Phase 14's header and run, after phase 13 in the same process."""
-    log(f"[14/15] {at()}: dry run: each train-parallel run and one-rank "
+    """Phase 15's header and run, after phase 13 in the same process."""
+    log(f"[15/17] {at()}: dry run: each train-parallel run and one-rank "
         f"run of phase 13 on meta in a fake world (the plain route, bf16 "
         f"compute, {PAR_ARGS['batch']} x {PAR_ARGS['seq_len']} tokens), "
         f"census exact and peaks within {DRYRUN_PEAK_TOL:.0%} of phase "
@@ -3375,16 +3918,20 @@ def run_dryrun(tpar, tp, args, at, started) -> dict:
     return dryrun_phase(tpar, tp, dict(PAR_ARGS, **args), started=started)
 
 
+#: the phases ``--only`` may pick
+ONLY = ("train-parallel", "resume", "examples")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
                         help="build, then check and time every kernel "
                         "(phases 1-3 without the gradient checks) and "
                         "stop; prints no result line")
-    parser.add_argument("--train-parallel-only", action="store_true",
-                        help="build, then run the train-parallel phase "
-                        "and the dry-run phase (which reads its numbers) "
-                        "alone and stop; prints no result line")
+    parser.add_argument("--only", nargs="+", choices=ONLY,
+                        help="build, then run these of phases 13-16 alone "
+                        "(train-parallel brings the dry run, which reads "
+                        "its numbers) and stop; prints no result line")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
@@ -3404,12 +3951,12 @@ def main(argv=None) -> int:
         """Seconds since the start, for the phase headers."""
         return f"at {time.perf_counter() - t_start:.1f} s"
 
-    log(f"[1/15] device: {smi} | torch {torch.__version__} cuda "
+    log(f"[1/17] device: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     build.build_all(verbose=True)
-    log(f"[2/15] build: kernels built in {time.perf_counter() - t0:.1f} s "
+    log(f"[2/17] build: kernels built in {time.perf_counter() - t0:.1f} s "
         f"({build.BUILD_ROOT / build.source_hash()})")
 
     cfg = get_config("stablelm-3b")
@@ -3417,36 +3964,66 @@ def main(argv=None) -> int:
     targs = dict(batch=4, microbatches=2, seq_len=2048, steps=4)
     shape = dict(H=cfg.num_heads, K=cfg.num_kv_heads, Dh=cfg.head_dim,
                  slots=4, cache_len=512, prefill_len=128)
-    started = None
+    only = set(opts.only or ONLY)
+    started = hosts = None
     if not opts.kernels_only:
-        # the dry run's production subset runs on meta, beside the card
-        started = start_dryrun_subset()
+        # the dry run's production subset runs on meta, and the host-only
+        # example twins on the CPU, beside the card
+        if "train-parallel" in only:
+            started = start_dryrun_subset()
+        if "examples" in only:
+            hosts = start_examples(EXAMPLES_HOST, "cpu")
     try:
         return _phases(opts, smi, cfg, tcfg, targs, shape, at, t_start,
-                       started)
+                       started, hosts)
     finally:
         if started is not None:
             for p in started[0]:
                 if p.is_alive():
                     p.terminate()
                 p.join()
+        stop_processes(hosts)
+
+
+def run_examples(at, hosts, cards) -> list:
+    """Phase 16's header and run: the card twins ``cards`` (started
+    beside phase 15) and the host-only twins ``hosts``."""
+    log(f"[16/17] {at()}: examples: each card twin of examples/torch as "
+        f"its own process on the card ("
+        + ", ".join(n for n, _, _ in EXAMPLES_CARD) + "), all started "
+        "together beside phase 15 where it runs; the host-only twins ("
+        + ", ".join(n for n, _, _ in EXAMPLES_HOST) + ") started on the "
+        "CPU after the build, beside the card's phases")
+    return (examples_phase(cards, ", beside each other and phase 15")
+            + examples_phase(hosts, ", beside the card's phases"))
 
 
 def _phases(opts, smi, cfg, tcfg, targs, shape, at, t_start,
-            started) -> int:
-    """Phases 3-15 of :func:`main`."""
+            started, hosts) -> int:
+    """Phases 3-17 of :func:`main`."""
     from repro_torch.models import init_params
     from repro_torch.models.model import cast_for_compute
 
     dargs = dict(slots=shape["slots"], cache_len=shape["cache_len"],
                  decode_chunk=8)
-    if opts.train_parallel_only:
-        tpar = run_train_parallel(tcfg, cfg, at)
-        run_dryrun(tpar, None, dargs, at, started)
-        log(f"train parallel only: stopped after the train-parallel and "
-            f"dry-run phases ({time.perf_counter() - t_start:.1f} s)")
+    if opts.only:
+        if "train-parallel" in opts.only:
+            tpar = run_train_parallel(tcfg, cfg, at)
+        if "resume" in opts.only:
+            run_resume(tcfg, at)
+        cards = start_examples(EXAMPLES_CARD, "cuda") \
+            if "examples" in opts.only else []
+        try:
+            if "train-parallel" in opts.only:
+                run_dryrun(tpar, None, dargs, at, started)
+            if "examples" in opts.only:
+                run_examples(at, hosts, cards)
+        finally:
+            stop_processes(cards)
+        log(f"only {' '.join(opts.only)}: stopped after "
+            f"{time.perf_counter() - t_start:.1f} s")
         return 0
-    log(f"[3/15] {at()}: kernels vs plain versions (tolerance bf16 "
+    log(f"[3/17] {at()}: kernels vs plain versions (tolerance bf16 "
         f"{TOL[torch.bfloat16]}, f32 {TOL[torch.float32]}; times: median "
         "of 20 launches, L2 flushed, queued behind a sleep: device time "
         "only):")
@@ -3459,7 +4036,7 @@ def _phases(opts, smi, cfg, tcfg, targs, shape, at, t_start,
         return 0
     grad_phase()
 
-    log(f"[4/15] {at()}: serve: full-width {cfg.name} ({cfg.num_layers} "
+    log(f"[4/17] {at()}: serve: full-width {cfg.name} ({cfg.num_layers} "
         f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads x "
         f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), random "
         f"weights seed {SEED}, bf16 compute")
@@ -3481,14 +4058,14 @@ def _phases(opts, smi, cfg, tcfg, targs, shape, at, t_start,
     profiles = {kind: profile_phase(cfg, params, args, kind == "paged")
                 for kind in ("dense", "paged")}
 
-    log(f"[5/15] {at()}: serve modes: full-width {cfg.name}, bf16, "
+    log(f"[5/17] {at()}: serve modes: full-width {cfg.name}, bf16, "
         f"{args['slots']} slots, cache {args['cache_len']}, 16-line pages, "
         f"decode chunk {args['decode_chunk']}, {args['requests']} requests "
         f"of {args['max_new']} tokens a run")
     modes = serve_modes_phase(cfg, params, args)
     plain_paths_phase(cfg, params, args)
 
-    log(f"[6/15] {at()}: consistency at full width (kernels vs plain "
+    log(f"[6/17] {at()}: consistency at full width (kernels vs plain "
         "versions):")
     consistency_phase(cfg, params)
     del params
@@ -3499,7 +4076,7 @@ def _phases(opts, smi, cfg, tcfg, targs, shape, at, t_start,
     torch.cuda.empty_cache()
 
     ssm = tcfg.ssm
-    log(f"[7/15] {at()}: train: full-width {tcfg.name} ({tcfg.num_layers} "
+    log(f"[7/17] {at()}: train: full-width {tcfg.name} ({tcfg.num_layers} "
         f"layers, d_model {tcfg.d_model}, {ssm.num_heads(tcfg.d_model)} SSD "
         f"heads x {ssm.head_dim}, state {ssm.state}, chunk {ssm.chunk}, vocab "
         f"{tcfg.vocab_size}), f32 weights seed {SEED}, bf16 compute, f32 "
@@ -3508,25 +4085,25 @@ def _phases(opts, smi, cfg, tcfg, targs, shape, at, t_start,
     train = train_phase(tcfg, targs, kernels["ssd_scan"]["ms"])
     torch.cuda.empty_cache()
 
-    log(f"[8/15] {at()}: train consistency at full width (kernels vs plain "
+    log(f"[8/17] {at()}: train consistency at full width (kernels vs plain "
         "vs f32):")
     train_consistency_phase(tcfg, targs)
     torch.cuda.empty_cache()
 
-    log(f"[9/15] {at()}: cluster: a scavenger job trains {tcfg.name} as "
+    log(f"[9/17] {at()}: cluster: a scavenger job trains {tcfg.name} as "
         f"phase 7 does, a high-QOS job serving {cfg.name} preempts it, it "
         "requeues and resumes from its checkpoint")
     clus = cluster_phase(tcfg, targs, cfg, args, train["losses"])
     torch.cuda.empty_cache()
 
-    log(f"[10/15] {at()}: families: SSM serving of mamba2-780m, MoE "
+    log(f"[10/17] {at()}: families: SSM serving of mamba2-780m, MoE "
         f"serving of qwen2-moe-a2.7b, starcoder2-3b; full width, "
         f"{args['slots']} slots, cache {args['cache_len']}, one wave of 4 "
         f"requests of {args['max_new']} tokens a run (two for n-gram "
         f"speculation), decode chunk {args['decode_chunk']}")
     fam = families_phase(dict(args, requests=4))
 
-    log(f"[11/15] {at()}: elastic: full-width {cfg.name} replicas sharing "
+    log(f"[11/17] {at()}: elastic: full-width {cfg.name} replicas sharing "
         f"one card and one bf16 weight set behind the router; "
         f"{args['slots']} slots, cache {args['cache_len']}, decode chunk "
         f"{args['decode_chunk']} a replica; {args['requests']} requests "
@@ -3534,7 +4111,7 @@ def _phases(opts, smi, cfg, tcfg, targs, shape, at, t_start,
         "system prompts in turn")
     elastic = elastic_phase(args)
 
-    log(f"[12/15] {at()}: tensor parallel: full-width {cfg.name} split "
+    log(f"[12/17] {at()}: tensor parallel: full-width {cfg.name} split "
         f"over two ranks sharing the card (gloo), {cfg.num_heads // 2} of "
         f"{cfg.num_heads} heads and {cfg.d_ff // 2} of d_ff {cfg.d_ff} a "
         f"rank, bf16; {args['slots']} slots, cache {args['cache_len']}, "
@@ -3544,8 +4121,15 @@ def _phases(opts, smi, cfg, tcfg, targs, shape, at, t_start,
     tp = tp_phase(dict(args, requests=4))
 
     tpar = run_train_parallel(tcfg, cfg, at)
-    dry = run_dryrun(tpar, tp, dict(dargs, decode_chunk=args[
-        "decode_chunk"]), at, started)
+    resume = run_resume(tcfg, at)
+    # the card twins are small: they run beside the dry run, on meta
+    cards = start_examples(EXAMPLES_CARD, "cuda")
+    try:
+        dry = run_dryrun(tpar, tp, dict(dargs, decode_chunk=args[
+            "decode_chunk"]), at, started)
+        examples = run_examples(at, hosts, cards)
+    finally:
+        stop_processes(cards)
 
     # the main path's serve runs: the f32 4-layer identity runs are a
     # check, not the path, and log their launches on their own line
@@ -3558,6 +4142,7 @@ def _phases(opts, smi, cfg, tcfg, targs, shape, at, t_start,
     for name in launches:
         launches[name] += clus["launches"][name]
         launches[name] += sum(r["launches"][name] for r in tpar["runs"])
+        launches[name] += resume["launches"].get(name, 0)
     summary = {name: {"max_abs_err": r["max_abs_err"],
                       "launches": launches[name]}
                for name, r in kernels.items()}
@@ -3572,7 +4157,10 @@ def _phases(opts, smi, cfg, tcfg, targs, shape, at, t_start,
     par_steps = ", ".join(f"{r['label']} {r['step_s']:.2f} s/step "
                           f"(collectives {r['coll_share']:.0%})"
                           for r in tpar["runs"])
-    log(f"[15/15] summary ({time.perf_counter() - t_start:.1f} s; serve "
+    resumes = ", ".join(f"{r['kind']} on {r['label']} {r['gap']:.1e}"
+                        for r in resume["runs"])
+    ex_secs = ", ".join(f"{r['name']} {r['s']:.1f} s" for r in examples)
+    log(f"[17/17] summary ({time.perf_counter() - t_start:.1f} s; serve "
         f"dense {dense['tok_s']:.1f} tok/s, paged {paged['tok_s']:.1f} "
         f"tok/s; modes {mode_rates} tok/s; decode kernel per token step "
         f"dense "
@@ -3583,14 +4171,16 @@ def _phases(opts, smi, cfg, tcfg, targs, shape, at, t_start,
         f"s, losses bit-identical to phase 7's; families {fam_rates} "
         f"tok/s; elastic {elastic_rates} tok/s wall; {tp_rates} tok/s; "
         f"train parallel {par_steps}; f32 identity "
-        f"{len(tpar['identity'])}/{len(tpar['identity'])}; dry run census "
+        f"{len(tpar['identity'])}/{len(tpar['identity'])}; resumed "
+        f"bit-identical, step 2 loss gaps {resumes}; dry run census "
         f"{dry['census']}/{len(TRAIN_PAR_RUNS)} exact, "
-        f"{len(dry['subset'])} production combinations; "
-        "launches summed over the main path: the bf16 serve runs (dense, "
-        "paged, the four modes, the families' five runs, the elastic "
-        "phase's five, the TP phase's two on both ranks), the kept train "
-        "steps, the cluster phase's two jobs and the train-parallel "
-        "phase's seven runs on every rank)")
+        f"{len(dry['subset'])} production combinations; examples "
+        f"{ex_secs}; launches summed over the main path: the bf16 serve "
+        "runs (dense, paged, the four modes, the families' five runs, the "
+        "elastic phase's five, the TP phase's two on both ranks), the kept "
+        "train steps, the cluster phase's two jobs, the train-parallel "
+        f"phase's {len(TRAIN_PAR_RUNS)} runs on every rank and the resume "
+        "phase's bf16 steps on every rank)")
     log("kernels " + json.dumps(summary))
     log(smi)
     line = {"kernels": [dict(name=name, route=r["route"], source=r["source"],

@@ -30,7 +30,7 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
-from repro_torch.tree import leaves_with_path, unflatten
+from repro_torch.tree import leaves_with_path
 
 _LEAF_RE = re.compile(r"[^\w.-]+")
 
@@ -142,11 +142,13 @@ def latest_step(directory: str) -> Optional[int]:
 
 def restore(directory: str, tree_like, step: Optional[int] = None,
             select: Optional[Callable] = None):
-    """Restore into the structure of ``tree_like``, a tree of tensors whose
-    dtypes and devices the restored leaves take.  ``select(path, whole)``
-    (optional) returns the block of a whole leaf (a view of its mapped
-    file) to restore, of ``tree_like``'s leaf's shape: only that block is
-    read.  Returns (tree, data_state | None)."""
+    """Restore into ``tree_like``'s tensors, in place: each stored leaf is
+    copied into the tensor of the same path, converted to its dtype on its
+    device, so a restore holds no second copy of the state where it
+    lands.  ``select(path, whole)`` (optional) returns the block of a
+    whole leaf (a view of its mapped file) to restore: only that block is
+    read.  A leaf (or block) whose shape is not its tensor's raises.
+    Returns (tree, data_state | None): ``tree_like`` itself, filled."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -162,7 +164,6 @@ def restore(directory: str, tree_like, step: Optional[int] = None,
             f"  want {names[:5]}...\n  have {manifest['treedef'][:5]}...")
     stored_dtype = {leaf["name"]: leaf["dtype"]
                     for leaf in manifest["leaves"]}
-    out = []
     for (p, like), nm in zip(flat, names):
         arr = np.load(os.path.join(path, nm + ".npy"),
                       mmap_mode=None if select is None else "c")
@@ -170,17 +171,15 @@ def restore(directory: str, tree_like, step: Optional[int] = None,
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
-        if select is None:
-            out.append(t.to(device=like.device, dtype=like.dtype))
-            continue
-        t = select(p, t)
+        if select is not None:
+            t = select(p, t)
         if tuple(t.shape) != tuple(like.shape):
-            raise ValueError(f"checkpoint leaf {p}: block {tuple(t.shape)}"
-                             f", want {tuple(like.shape)}")
-        out.append(torch.empty(like.shape, dtype=like.dtype,
-                               device=like.device).copy_(t))
+            raise ValueError(f"checkpoint leaf {p}: "
+                             f"{'block' if select else 'leaf'} "
+                             f"{tuple(t.shape)}, want {tuple(like.shape)}")
+        like.copy_(t)
         del t, arr
-    tree = unflatten(tree_like, out)
+    tree = tree_like
     ds_path = os.path.join(path, "data_state.npz")
     data_state = dict(np.load(ds_path, allow_pickle=False)) \
         if os.path.exists(ds_path) else None

@@ -60,13 +60,18 @@ def make_pipeline_mesh(n_stages: int, devices=None) -> PipeMesh:
 
 
 def _ring(x: torch.Tensor, to: int, frm: int, group) -> torch.Tensor:
-    """Send ``x`` to rank ``to`` and receive the same shape from ``frm``."""
-    out = torch.empty_like(x)
-    ops = [dist.P2POp(dist.isend, x.contiguous(), to, group),
+    """Send ``x`` to rank ``to`` and receive the same shape from ``frm``.
+    gloo sends and receives host memory only (it would read a CUDA
+    tensor's device pointer as a host address), so over gloo a CUDA
+    tensor goes through a host copy each way."""
+    staged = x.device.type == "cuda" and dist.get_backend(group) == "gloo"
+    send = x.detach().cpu() if staged else x.contiguous()
+    out = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send, to, group),
            dist.P2POp(dist.irecv, out, frm, group)]
     for work in dist.batch_isend_irecv(ops):
         work.wait()
-    return out
+    return out.to(x.device) if staged else out
 
 
 class _PPermute(torch.autograd.Function):

@@ -31,6 +31,8 @@ SCENARIOS = (
     ("mamba2-780m tp 1x2", "mamba2-780m", (1, 2), "tp", 3, "train", 1),
     ("qwen2-moe-a2.7b tp 1x2", "qwen2-moe-a2.7b", (1, 2), "tp", 3, "train",
      1),
+    ("qwen2-moe-a2.7b fsdp z3 2x1", "qwen2-moe-a2.7b", (2, 1), "fsdp", 3,
+     "train", 1),
     ("stablelm-3b decode tp 1x2", "stablelm-3b", (1, 2), "tp", 3, "decode",
      1),
     # one kv head over 2 ranks: the cache's lines shard over them, under

@@ -42,7 +42,9 @@ OTHERS = (("starcoder2 gqa tp 1x4", "starcoder2-3b", (1, 4), "tp", 1, 2,
           ("mamba2 fsdp z3 2x1", "mamba2-780m", (2, 1), "fsdp", 3, 2,
            SHAPE),
           ("qwen2-moe dp 2x1", "qwen2-moe-a2.7b", (2, 1), "dp", 1, 1,
-           (4, 64)))
+           (4, 64)),
+          ("qwen2-moe fsdp z3 2x1", "qwen2-moe-a2.7b", (2, 1), "fsdp", 3,
+           1, (4, 64)))
 
 
 def f32_reduced(arch: str):
@@ -162,12 +164,47 @@ def _checkpoint(mesh, cfg, params_np, ckpt_dir):
                    for h in t.train(log=lambda *_: None)]
 
 
+def resume_trainer(cfg, mesh, strategy: str, zero: int, steps: int,
+                   ckpt_dir: str, device=None):
+    """The resume scenario's ``Trainer``: f32, two microbatches of
+    ``SHAPE``, AdamW with ``OPT``, checkpoints in ``ckpt_dir``."""
+    from repro_torch.configs import InputShape, RunConfig
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.training import Trainer, TrainerConfig
+
+    return Trainer(cfg, RunConfig(strategy=strategy, zero_stage=zero,
+                                  use_kernels=True, microbatches=2), mesh,
+                   InputShape("t", SHAPE[1], SHAPE[0], "train"),
+                   OptimizerConfig(**OPT),
+                   TrainerConfig(steps=steps, log_every=100,
+                                 ckpt_dir=ckpt_dir), device=device)
+
+
+def _resume(meshes, cfg, params_np, ckpt_dir):
+    """Reduced mamba2-780m under dp ZeRO 2 on the 2x1 mesh from the given
+    weights: a step, a checkpoint (its optimizer state gathered from the
+    ranks' slices), a second step; then a trainer under tp on 1x2 (the
+    SSD heads split) resumes from the checkpoint and takes step 2.
+    Returns the metrics of both runs' steps."""
+    from repro_torch.weights import params_from_jax
+
+    t = resume_trainer(cfg, meshes[(2, 1)], "dp", 2, 1, ckpt_dir)
+    t.params = t.layout.shard(params_from_jax(params_np), "param")
+    t.train(log=lambda *_: None)
+    t.save()
+    t.tcfg.steps = 2
+    t.train(log=lambda *_: None)
+    r = resume_trainer(cfg, meshes[(1, 2)], "tp", 3, 2, ckpt_dir)
+    r.train(log=lambda *_: None)
+    return {"uninterrupted": t.history, "tp": r.history}
+
+
 def rank_main(mesh, jobs: dict) -> dict:
     """Every scenario of one launch, in the same order on every rank.
     ``jobs``: "weights" (arch -> whole numpy params), "train" (a list of
     (label, arch, mesh shape, RunConfig kwargs, (batch, seq))),
-    "pipeline", "checkpoint" (a directory), "cli" (the train CLI's
-    argv)."""
+    "pipeline", "checkpoint" (a directory), "resume" (a directory; 2
+    ranks), "cli" (the train CLI's argv)."""
     from repro_torch.configs import RunConfig
 
     torch.manual_seed(0)
@@ -186,6 +223,10 @@ def rank_main(mesh, jobs: dict) -> dict:
         out["checkpoint"] = _checkpoint(
             meshes[(2, 2)], f32_reduced("stablelm-3b"),
             jobs["weights"]["stablelm-3b"], jobs["checkpoint"])
+    if jobs.get("resume"):
+        out["resume"] = _resume(meshes, f32_reduced("mamba2-780m"),
+                                jobs["weights"]["mamba2-780m"],
+                                jobs["resume"])
     if jobs.get("cli"):
         from repro_torch.launch.train import train_rank
         out["cli"] = train_rank(meshes[(2, 2)], jobs["cli"])["lines"]

@@ -1,6 +1,7 @@
-"""The port stands alone: every module of ``repro_torch`` and
-``chip_smoke.py`` imports in a fresh interpreter whose import hook refuses
-``jax`` and ``repro`` (the exact top-level names), and ``triton``; no
+"""The port stands alone: every module of ``repro_torch``, every example
+twin of ``examples/torch`` and ``chip_smoke.py`` import in a fresh
+interpreter whose import hook refuses ``jax`` and ``repro`` (the exact
+top-level names), and ``triton``; no
 kernel module builds or looks for ``nvcc`` at import, and no module
 initialises a process group (the dry run's fake world among them).
 Every module of the JAX package has a same-path twin.  The serve and
@@ -39,10 +40,17 @@ for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     mods.append(info.name)
 sys.path.insert(0, sys.argv[1])
 importlib.import_module("chip_smoke")
+import importlib.util, pathlib
+examples = []
+for f in sorted((pathlib.Path(sys.argv[1]) / "examples" / "torch").glob(
+        "*.py")):
+    spec = importlib.util.spec_from_file_location("example_" + f.stem, f)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    examples.append(f.stem)
 from repro_torch.kernels import build
 import torch.distributed as dist
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
-print(json.dumps({"modules": mods, "leaked": leaked,
+print(json.dumps({"modules": mods, "leaked": leaked, "examples": examples,
                   "libs": len(build._libs),
                   "process_group": dist.is_initialized()}))
 """
@@ -62,6 +70,10 @@ def test_port_imports_without_jax_repro_or_triton(tmp_path):
     assert out["leaked"] == []
     assert out["libs"] == 0                      # nothing built at import
     assert out["process_group"] is False         # the dry run's world too
+    # every example twin imports under the same hook
+    assert out["examples"] == sorted(
+        p.stem for p in (ROOT / "examples" / "torch").glob("*.py"))
+    assert len(out["examples"]) == 9
     want = {"repro_torch." + m.name for m in pkgutil.walk_packages(
         [str(ROOT / "src" / "repro_torch")])}
     for pkg in ("configs", "models", "kernels", "policy", "monitoring",
@@ -99,9 +111,11 @@ def test_every_jax_module_has_a_twin():
 
 
 def test_no_source_names_jax_or_repro():
-    """A static check beside the runtime one: no import line of the port
-    or of chip_smoke.py names jax, repro or triton at module level."""
+    """A static check beside the runtime one: no import line of the port,
+    of its example twins (``examples/torch``) or of chip_smoke.py names
+    jax, repro or triton at module level."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files += sorted((ROOT / "examples" / "torch").glob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     bad = []
     for f in files:

@@ -16,14 +16,18 @@ host devices runs ``fsdp_tp`` ZeRO 3 on a (2, 2) mesh.
 * ``gather_bf16`` and ``grad_reduce_bf16`` against JAX with the same knob;
 * starcoder2-3b (2 kv heads) on a (1, 4) mesh, where the query heads
   shard and the kv heads do not, and on (2, 2);
-* reduced mamba2-780m under fsdp ZeRO 3 and reduced qwen2-moe under dp,
-  its aux losses included;
+* reduced mamba2-780m under fsdp ZeRO 3 and reduced qwen2-moe under dp
+  and under fsdp ZeRO 3, its aux losses included;
 * the 2-stage pipeline's outputs and gradients against the sequential run
   of the same stage function;
 * ``train --data 2 --model 2`` (its ranks' function) against the one-cell
   CLI;
 * an fsdp_tp checkpoint restored into the one-rank port trainer and into
-  the JAX ``Trainer``, whose next losses are equal.
+  the JAX ``Trainer``, whose next losses are equal;
+* a dp ZeRO 2 checkpoint of reduced mamba2-780m resumed under tp on 1 x
+  2, on one rank and in the JAX ``Trainer``: step 2 equal to the
+  uninterrupted run's;
+* ``chip_smoke.py``'s train-parallel and resume phases at reduced size.
 
 Tensor parallelism of the SSM, hybrid and MoE families and the
 ``seq_parallel``/``moe_defer_combine`` layouts are
@@ -180,6 +184,7 @@ def runs(cpu_mesh, tmp_path_factory):
                                         microbatches=mb), bshape)
               for label, arch, shape, s, z, mb, bshape in R.OTHERS]
     two = {"weights": weights, "pipeline": True,
+           "resume": str(tmp / "resume"),
            "train": _train_jobs(R.TWO) + [j for j in others
                                           if j[2] in ((2, 1), (1, 2))]}
     four = {"weights": {a: weights[a] for a in ("stablelm-3b",
@@ -366,6 +371,38 @@ def test_fsdp_tp_checkpoint_restores_in_port_and_jax(runs, cpu_mesh):
                                rtol=F32["rtol"])
 
 
+def test_dp_zero2_checkpoint_resumes_on_tp_one_rank_and_jax(runs, cpu_mesh):
+    """Reduced mamba2-780m saved by 2 ranks under dp ZeRO 2 at step 1 (the
+    AdamW state gathered from their slices) resumes under tp on 1 x 2
+    (the SSD heads split over the ranks), on one rank and in the JAX
+    ``Trainer``: each one's step 2 is the uninterrupted run's and JAX's
+    (f32, 1e-5 relative)."""
+    from repro_torch import checkpoint as tckpt
+    d = str(runs.tmp / "resume")
+    assert tckpt.latest_step(d) == 1
+    res = runs.two[0]["resume"]
+    assert [h["step"] for h in res["uninterrupted"]] == [1, 2]
+    assert [h["step"] for h in res["tp"]] == [2]
+    assert runs.two[1]["resume"]["tp"][0]["loss"] == res["tp"][0]["loss"]
+    one = R.resume_trainer(R.f32_reduced("mamba2-780m"), None, "fsdp_tp", 3,
+                           2, d, device="cpu").train(log=lambda *_: None)
+    assert [h["step"] for h in one] == [2]
+    jcfg = dataclasses.replace(jax_reduced("mamba2-780m"), dtype="float32")
+    jt = JaxTrainer(jcfg, JaxRunConfig(strategy="dp", microbatches=2,
+                                       remat="none"), cpu_mesh,
+                    JaxInputShape("t", R.SHAPE[1], R.SHAPE[0], "train"),
+                    JaxOptimizerConfig(**R.OPT),
+                    JaxTrainerConfig(steps=2, log_every=100, ckpt_dir=d))
+    jt.step_fn = runs.refs["mamba2-780m"]["step"]     # the same program
+    with cpu_mesh:
+        jh = jt.train(log=lambda *_: None)
+    assert [h["step"] for h in jh] == [2]
+    for got in (res["uninterrupted"][1], res["tp"][0], one[0]):
+        for k in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(got[k], jh[0][k], rtol=F32["rtol"],
+                                       err_msg=k)
+
+
 def test_cell_devices_and_backends():
     """The CLI names one device a cell: ``--device`` repeated, or
     ``--devices``; NCCL only where every cell has a card of its own."""
@@ -403,9 +440,33 @@ def test_chip_smoke_train_parallel_phase_on_cpu(capsys):
                for _, rel, grel, perr, upd in out["identity"])
     text = capsys.readouterr().out
     for label in ("fsdp_tp z3 2x2", "mamba2-780m tp 1x2",
-                  "tp seq_parallel 1x2"):
+                  "tp seq_parallel 1x2", "qwen2-moe-a2.7b fsdp z3 2x1",
+                  "qwen2-moe-a2.7b tp 1x2"):
         assert f"f32 identity {label}" in text
     assert "  qwen2-moe-a2.7b tp 1x2: losses" in text
+    assert "  qwen2-moe-a2.7b fsdp z3 2x1: losses" in text
+    assert f"qwen2-moe-a2.7b f32 {chip_smoke.MOE_F32_LAYERS} layers" in text
+
+
+def test_chip_smoke_resume_phase_on_cpu(capsys):
+    """``chip_smoke.py``'s resume phase at reduced size on the CPU: a dp
+    ZeRO 2 checkpoint of 2 ranks resumes under tp on 1 x 2 and on one
+    rank, bf16 and f32, with every leaf's digest equal to the saving
+    run's and the resumed step 2 within the gates (the memory and launch
+    gates hold on the card only)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    out = chip_smoke.resume_phase(dict(seq_len=32, batch=4), device="cpu",
+                                  reduced=True)
+    assert [(r["kind"], r["label"]) for r in out["runs"]] == [
+        (k, label) for k in ("bf16", "f32")
+        for label in ("tp 1x2", "one rank")]
+    assert all(r["rel"] <= 1e-5 and r["grel"] <= 1e-5
+               for r in out["runs"] if r["kind"] == "f32")
+    text = capsys.readouterr().out
+    assert text.count("digests equal the saving run's at step 1") == 4
+    assert set(out["launches"]) == {"flash_attention", "flash_decode",
+                                    "flash_decode_paged", "ssd_scan"}
 
 
 def test_seq_parallel_one_rank_matches_jax():
