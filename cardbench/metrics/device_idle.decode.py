@@ -1,0 +1,7 @@
+"""1 - (union of the device operations' intervals / the profiled
+sub-window's wall time), in %."""
+from harness.readers import idle_percent
+
+
+def read(rec):
+    return idle_percent(rec)
