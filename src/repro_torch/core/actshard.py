@@ -64,6 +64,8 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.monitoring.trace import SPANS
+
 Rules = Callable[[str, tuple], Optional[tuple]]   # (name, shape) -> spec
 
 _RULES: contextvars.ContextVar[Optional[Rules]] = contextvars.ContextVar(
@@ -470,12 +472,13 @@ def use_params(tree, which: str):
 
 def snapshot():
     """A context manager factory that installs, wherever it is entered,
-    the rules, plans and hooks installed here now.  Recomputation under
+    the rules, plans and hooks installed here now, and the traced call's
+    span scope (``monitoring.trace.SPANS``).  Recomputation under
     ``torch.utils.checkpoint`` reruns a body inside the backward pass,
     which on a CUDA device runs on autograd's own thread, where the
     caller's context variables are not set."""
     saved = [(var, var.get()) for var in (_RULES, _TP_REDUCE, _TRAIN_TP,
-                                          _PARAM_USE)]
+                                          _PARAM_USE, SPANS)]
 
     @contextlib.contextmanager
     def scope():

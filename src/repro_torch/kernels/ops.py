@@ -15,12 +15,15 @@ the plain version under autograd and backpropagates through it.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.monitoring.trace import SPANS
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -53,12 +56,18 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, window):
         ctx.save_for_backward(q, k, v)
         ctx.window = window
+        # a traced step's span scope: the backward runs on autograd's own
+        # thread, where it is not set
+        ctx.spans = SPANS.get()
         return _fa.flash_attention_bshd(q, k, v, window=window)
 
     @staticmethod
     def backward(ctx, grad_o):
-        return _recompute_grads(ctx, ref.attention_ref, grad_o,
-                                ctx.window) + (None,)
+        sc = ctx.spans
+        with (sc.span("attention_bwd", "kernel") if sc is not None
+              else contextlib.nullcontext()):
+            return _recompute_grads(ctx, ref.attention_ref, grad_o,
+                                    ctx.window) + (None,)
 
 
 class _SSDScan(torch.autograd.Function):

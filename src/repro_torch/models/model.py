@@ -46,6 +46,7 @@ from repro_torch.models import ssm as SSM
 from repro_torch.models.init import torch_dtype
 from repro_torch.models.mlp import mlp_apply, rmsnorm
 from repro_torch.models.spec import group_period, layer_schedule
+from repro_torch.monitoring.trace import SPANS
 
 #: token emitted by finished slots inside a decode_n chunk (host drops them)
 PAD_TOKEN_ID = 0
@@ -378,6 +379,22 @@ def _attn_only(cfg: ModelConfig) -> bool:
     return all(mixer == "attn" for mixer, _ in layer_schedule(cfg))
 
 
+#: span name of a sublayer's sequence mixer (traced calls, ``SPANS``).
+#: Layer spans are timed on the host only (a timing event costs ~20-90 us
+#: of host time between the decode step's launches on an H100), from one
+#: clock reading a boundary, made into spans once the loop is done
+#: (``SpanScope.layers``).
+_MIXER_SPAN = {"attn": "attention"}
+
+
+def _layer_names(sched, sublayers: int) -> list:
+    """The span names of ``sublayers`` sublayers run in the schedule's
+    order: the mixer's, then ``ffn``."""
+    period = [n for mixer, _ in sched
+              for n in (_MIXER_SPAN.get(mixer, mixer), "ffn")]
+    return period * (sublayers // len(sched))
+
+
 def prefill(params, batch: dict, cfg: ModelConfig, run: RunConfig,
             cache_len: Optional[int] = None,
             last_pos: Optional[int] = None,
@@ -424,11 +441,15 @@ def prefill(params, batch: dict, cfg: ModelConfig, run: RunConfig,
         positions = idx - front_pad
         conv_end = front_pad + num_real
     per_group = []
+    sc = SPANS.get()
+    marks = [] if sc is not None else None
     for g in range(_groups(params)):
         caches = []
         gp = _use_group(params, g, P)
         for i, (mixer, ffn) in enumerate(sched):
             p = gp[i]
+            if marks is not None:
+                marks.append(sc.tracer.clock())
             hh = rmsnorm(h, p["norm1"]["scale"], cfg.norm_eps)
             if mixer == "attn":
                 hh, c = A.attention_prefill(p["attn"], hh, cfg, slots,
@@ -439,9 +460,14 @@ def prefill(params, batch: dict, cfg: ModelConfig, run: RunConfig,
                 hh, c = SSM.ssm_prefill(p["ssm"], hh, cfg,
                                         use_kernels=run.use_kernels,
                                         valid=valid, conv_end=conv_end)
+            if marks is not None:
+                marks.append(sc.tracer.clock())
             h = _ffn(p, h + hh, ffn, cfg)
             caches.append(c)
         per_group.append(caches)
+    if marks is not None:
+        marks.append(sc.tracer.clock())
+        sc.layers(_layer_names(sched, len(marks) // 2), marks, "model")
     h = rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)
     h_last = h[:, -1:] if last_pos is None else h[:, last_pos:last_pos + 1]
     logits = unembed(params, h_last, cfg)
@@ -530,11 +556,15 @@ def decode_step(params, cache, token, pos, cfg: ModelConfig, run: RunConfig,
         posv = torch.broadcast_to(torch.as_tensor(pos, device=h.device), (B,))
         pe = A.sinusoidal_pe(posv[:, None], cfg.d_model)   # (B,1,d)
         h = h + pe.to(h.dtype)
+    sc = SPANS.get()
+    marks = [] if sc is not None else None
     for g in range(_groups(params)):
         gp = _use_group(params, g, P)
         for i, (mixer, ffn) in enumerate(sched):
             p = gp[i]
             c = _take(cache["layers"][i], g)
+            if marks is not None:
+                marks.append(sc.tracer.clock())
             hh = rmsnorm(h, p["norm1"]["scale"], cfg.norm_eps)
             if mixer != "attn":
                 hh, _ = SSM.ssm_decode(p["ssm"], hh, c, cfg)
@@ -545,7 +575,12 @@ def decode_step(params, cache, token, pos, cfg: ModelConfig, run: RunConfig,
             else:
                 hh, _ = A.attention_decode(p["attn"], hh, c, pos, cfg,
                                            use_kernels=run.use_kernels)
+            if marks is not None:
+                marks.append(sc.tracer.clock())
             h = _ffn(p, h + hh, ffn, cfg)
+    if marks is not None:
+        marks.append(sc.tracer.clock())
+        sc.layers(_layer_names(sched, len(marks) // 2), marks, "model")
     h = rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)
     return unembed(params, h, cfg), cache
 
@@ -631,9 +666,14 @@ def decode_n(params, cache, token, pos, remaining, done, eos, temps,
     boundary = (cache_len - 1) if limit is None else (limit - 1)
     tok, rem = token, remaining
     emitted = []
+    sc = SPANS.get()
     for _ in range(num_tokens):
+        if sc is not None:
+            step = sc.begin("token_step", "model", False)
         logits, cache = decode_step(params, cache, tok[:, None], pos, cfg,
                                     run, page_table=page_table)
+        if sc is not None:
+            sample = sc.begin("sample", "model", False)
         nxt = sample_tokens(generator, logits[:, 0], temps)
         live = ~done
         emitted.append(torch.where(live, nxt, PAD_TOKEN_ID))
@@ -644,4 +684,7 @@ def decode_n(params, cache, token, pos, remaining, done, eos, temps,
                                | (new_pos >= boundary)))
         tok = torch.where(live, nxt, tok)
         pos, rem = new_pos, new_rem
+        if sc is not None:
+            sc.end(sample)
+            sc.end(step)
     return torch.stack(emitted, dim=1), cache, tok, pos, rem, done

@@ -164,12 +164,13 @@ class Histogram:
         self._sum: dict[tuple, float] = {}
         self._lock = threading.Lock()
 
-    def observe(self, value: float, **labels):
+    def observe(self, value: float, count: int = 1, **labels):
+        """Record ``value`` ``count`` times (one bucket and sum update)."""
         key = _labels_key(labels)
         with self._lock:
             counts = self._counts.setdefault(key, [0] * len(self.buckets))
-            counts[bisect.bisect_left(self.buckets, value)] += 1
-            self._sum[key] = self._sum.get(key, 0.0) + value
+            counts[bisect.bisect_left(self.buckets, value)] += count
+            self._sum[key] = self._sum.get(key, 0.0) + value * count
 
     def count(self, **labels) -> int:
         return sum(self._counts.get(_labels_key(labels), []))

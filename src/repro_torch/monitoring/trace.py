@@ -27,21 +27,40 @@ the per-request story:
   per-tier SLO-attainment counters, the series the ROADMAP's
   SLO-aware-QOS admission will be judged against.
 
-Tracing is strictly opt-in: every producer guards on ``tracer is None``,
-so the untraced hot path pays nothing (the JAX package's
-``bench_latency_slo`` asserts the traced path stays within 5% tok/s of
-tracing disabled).
+* **Device timing** — a span opened with ``device=`` a CUDA device
+  records a timing event on that device's current stream at its begin
+  and its end (events come from a pool).  :meth:`Tracer.resolve` turns
+  completed events into ``device_start``/``device_end`` on the tracer's
+  own clock, through an anchor event recorded while the stream was idle
+  together with a clock reading.  :meth:`Tracer.sync_point` resolves
+  and re-anchors, and is called only after a synchronize the program
+  makes anyway, so device timing adds none (what has not completed stays
+  pending; an export resolves too).  :meth:`Tracer.anchor`
+  pairs the clock with ``time.time_ns()`` and travels with every export,
+  which maps the profiler's epoch-nanosecond device ops onto the span
+  axis.
+* **Layer spans** — an engine step or a train step installs a
+  :class:`SpanScope` in the :data:`SPANS` context variable; the model,
+  optimizer and kernel code below it open their spans there, as
+  children of the innermost open one (``core.actshard.snapshot`` carries
+  it onto autograd's device thread).
+
+Tracing is strictly opt-in: every producer guards on ``tracer is None``
+or reads :data:`SPANS` once, so the untraced hot path creates no span
+and no event (the JAX package's ``bench_latency_slo`` asserts the traced
+path stays within 5% tok/s of tracing disabled).
 """
 from __future__ import annotations
 
+import contextvars
 import itertools
 import json
 import threading
 import time
 from collections import deque
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Sequence
 
 from repro_torch.monitoring.metrics import LATENCY_BUCKETS, MetricsRegistry
 
@@ -63,6 +82,8 @@ METRIC_SLO_ITL_VIOLATIONS = "serve_slo_itl_violations"
 
 #: default (process, thread) lane for spans that don't name one
 DEFAULT_TRACK = ("trace", "main")
+#: the Chrome export's lane of device-timed spans, at their device times
+DEVICE_TRACK = ("device", "stream")
 
 
 @dataclass
@@ -85,8 +106,16 @@ class Span:
     start: float
     parent: Optional[int] = None       # parent span id
     attrs: dict = field(default_factory=dict)
-    events: list = field(default_factory=list)
+    #: instant events; a tuple until the first (one object fewer for the
+    #: garbage collector to walk in each of the many spans with none)
+    events: Sequence = ()
     end: Optional[float] = None
+    #: when the device ran the span's work, on the tracer's clock (device-
+    #: timed spans, once :meth:`Tracer.resolve` has read their events)
+    device_start: Optional[float] = None
+    device_end: Optional[float] = None
+    #: [anchor, begin event, end event, device] until resolved
+    _dev: Optional[list] = field(default=None, repr=False, compare=False)
 
     @property
     def duration(self) -> float:
@@ -145,25 +174,25 @@ class SLORecorder:
     def itl(self, seconds: float, tenant: str, qos: str, n: int = 1):
         """Per-token inter-token latency.  The fused decode path syncs
         once per chunk, so it reports the chunk-amortized per-token
-        latency ``n`` times — the histogram stays token-weighted."""
-        hist = self._hist(METRIC_SERVE_ITL, "per-token inter-token latency")
-        for _ in range(n):
-            hist.observe(seconds, tenant=tenant, qos=qos)
-        target = self.targets.get(qos, SLOTarget()).itl_s
-        for _ in range(n):
-            self._attain(seconds, target, METRIC_SLO_ITL_MET,
-                         METRIC_SLO_ITL_VIOLATIONS, tenant, qos)
+        latency with a count of ``n`` — the histogram stays
+        token-weighted."""
+        self._hist(METRIC_SERVE_ITL, "per-token inter-token latency").observe(
+            seconds, count=n, tenant=tenant, qos=qos)
+        self._attain(seconds, self.targets.get(qos, SLOTarget()).itl_s,
+                     METRIC_SLO_ITL_MET, METRIC_SLO_ITL_VIOLATIONS, tenant,
+                     qos, n)
 
     def e2e(self, seconds: float, tenant: str, qos: str):
         self._hist(METRIC_SERVE_E2E, "submit -> finish").observe(
             seconds, tenant=tenant, qos=qos)
 
-    def _attain(self, seconds, target, met_name, viol_name, tenant, qos):
+    def _attain(self, seconds, target, met_name, viol_name, tenant, qos,
+                n: int = 1):
         if target is None:
             return
         name = met_name if seconds <= target else viol_name
         self.metrics.counter(name, "SLO attainment").inc(
-            tenant=tenant, qos=qos)
+            n, tenant=tenant, qos=qos)
 
     # ----------------------------------------------------------- reports ----
     def attainment(self) -> dict[tuple, dict]:
@@ -221,6 +250,43 @@ class SLORecorder:
         return "\n".join(rows)
 
 
+class CudaEvents:
+    """Timing events on a CUDA device's current stream.  Span events come
+    from a pool that :meth:`Tracer.resolve` refills; a test substitutes a
+    fake with the same methods."""
+
+    def __init__(self):
+        self._free: list = []
+
+    def record(self, device):
+        import torch
+
+        ev = self._free.pop() if self._free else \
+            torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(device))
+        return ev
+
+    @staticmethod
+    def idle(device) -> bool:
+        """Whether the device's current stream has finished its work (no
+        wait)."""
+        import torch
+
+        return torch.cuda.current_stream(device).query()
+
+    @staticmethod
+    def done(ev) -> bool:
+        return ev.query()
+
+    @staticmethod
+    def seconds(a, b) -> float:
+        """Device time from event ``a`` to event ``b``."""
+        return a.elapsed_time(b) / 1e3
+
+    def release(self, *evs):
+        self._free.extend(evs)
+
+
 class Tracer:
     """Nestable spans over an injectable monotonic clock, with ring-buffer
     retention and Chrome trace-event export.
@@ -241,14 +307,19 @@ class Tracer:
         self._open: dict[int, Span] = {}
         self._sid = itertools.count(1)
         self._lock = threading.Lock()
+        self.events = CudaEvents()
+        self._anchors: dict = {}        # device -> (event, clock reading)
+        self._pending: list[Span] = []  # ended, device times not read yet
 
     # ------------------------------------------------------------- spans ----
     def begin(self, name: str, cat: str = "serving",
               track: tuple = DEFAULT_TRACK,
               parent: Optional[Span] = None,
-              ts: Optional[float] = None, **attrs) -> Span:
+              ts: Optional[float] = None, device=None, **attrs) -> Span:
         """Open a span.  ``parent`` nests it (child inherits the parent's
-        track unless one is given explicitly via a non-default value)."""
+        track unless one is given explicitly via a non-default value).
+        ``device``: a CUDA ``torch.device`` times the span on the device
+        too (any other device, or None, records nothing)."""
         if parent is not None and track is DEFAULT_TRACK:
             track = parent.track
         span = Span(sid=next(self._sid), name=name, cat=cat,
@@ -256,6 +327,13 @@ class Tracer:
                     start=self.clock() if ts is None else ts,
                     parent=parent.sid if parent is not None else None,
                     attrs=dict(attrs))
+        if device is not None:
+            anchor = self._anchors.get(device)
+            if anchor is None and device.type == "cuda":
+                anchor = self._anchor_device(device)
+            if anchor is not None:
+                span._dev = [anchor, self.events.record(device), None,
+                             device]
         with self._lock:
             self._open[span.sid] = span
         return span
@@ -265,12 +343,74 @@ class Tracer:
         open table into the ring buffer."""
         if span.end is not None:        # idempotent: double-end is a no-op
             return span
+        if span._dev is not None:
+            span._dev[2] = self.events.record(span._dev[3])
+            self._pending.append(span)
         span.end = self.clock() if ts is None else ts
         span.attrs.update(attrs)
         with self._lock:
             self._open.pop(span.sid, None)
             self._done.append(span)
         return span
+
+    def add(self, parent: Span, names: list, marks: list, cat: str) -> None:
+        """Completed children of ``parent``, ``names[i]`` from ``marks[i]``
+        to ``marks[i + 1]`` (see :meth:`SpanScope.layers`)."""
+        sid, track, up = self._sid, parent.track, parent.sid
+        spans = [Span(next(sid), name, cat, track, marks[i], up,
+                      end=marks[i + 1]) for i, name in enumerate(names)]
+        with self._lock:
+            self._done.extend(spans)
+
+    # ------------------------------------------------------ device time ----
+    def anchor(self) -> tuple:
+        """``(clock(), time.time_ns())`` read back to back: maps an
+        epoch-nanosecond stamp (the profiler's) onto the span axis."""
+        return self.clock(), time.time_ns()
+
+    def _anchor_device(self, device):
+        """Record an anchor event if the device's stream is idle (the
+        event then runs as it is recorded, at the clock reading taken
+        with it); else keep the last anchor.  Anchors are not pooled:
+        spans still pending hold theirs."""
+        if not self.events.idle(device):
+            return self._anchors.get(device)
+        anchor = (self.events.record(device), self.clock())
+        self._anchors[device] = anchor
+        return anchor
+
+    def resolve(self) -> int:
+        """Read the events of ended device-timed spans whose work has
+        completed into ``device_start``/``device_end`` (no wait: a span
+        still running stays pending), and hand their events back to the
+        pool.  Returns how many spans were read."""
+        pending = self._pending
+        if not pending:
+            return 0
+        # one stream a device: its last event done means all are
+        last = pending[-1]._dev
+        every = self.events.done(last[2]) and all(
+            sp._dev[3] == last[3] for sp in pending)
+        keep = []
+        for sp in pending:
+            (ev_a, t_a), ev0, ev1, _ = sp._dev
+            if not every and not self.events.done(ev1):
+                keep.append(sp)
+                continue
+            sp.device_start = t_a + self.events.seconds(ev_a, ev0)
+            sp.device_end = t_a + self.events.seconds(ev_a, ev1)
+            self.events.release(ev0, ev1)
+            sp._dev = None
+        self._pending = keep
+        return len(pending) - len(keep)
+
+    def sync_point(self, device) -> None:
+        """Call right after a synchronize the program makes on ``device``:
+        resolve what has completed and re-anchor the device's clock."""
+        if device is None or device.type != "cuda":
+            return
+        self.resolve()
+        self._anchor_device(device)
 
     @contextmanager
     def span(self, name: str, cat: str = "serving",
@@ -285,6 +425,8 @@ class Tracer:
     def event(self, name: str, span: Span, ts: Optional[float] = None,
               **attrs):
         """Instant event attached to a span (rendered as an 'i' marker)."""
+        if not span.events:
+            span.events = []
         span.events.append(SpanEvent(
             name, self.clock() if ts is None else ts, dict(attrs)))
 
@@ -307,14 +449,33 @@ class Tracer:
             return list(self._open.values())
 
     # ------------------------------------------------------------ export ----
+    def export(self) -> dict:
+        """The completed spans as plain records, with the clock
+        :meth:`anchor`: ``{"anchor": [clock, time_ns], "spans": [{sid,
+        parent, name, cat, track, start, end, device_start, device_end,
+        attrs}]}``, in completion order.  Device times that have completed
+        are read first (no wait)."""
+        self.resolve()
+        return {"anchor": list(self.anchor()),
+                "spans": [{"sid": s.sid, "parent": s.parent, "name": s.name,
+                           "cat": s.cat, "track": list(s.track),
+                           "start": s.start, "end": s.end,
+                           "device_start": s.device_start,
+                           "device_end": s.device_end,
+                           "attrs": dict(s.attrs)} for s in self.spans()]}
+
     def export_chrome(self, path: Optional[str] = None,
                       include_open: bool = True) -> dict:
         """Chrome trace-event JSON (the format Perfetto/chrome://tracing
         load).  Spans become complete ('X') events; span events become
         instants ('i'); track tuples map to (pid, tid) lanes with
-        metadata naming events.  Events are sorted by timestamp, so
-        consumers see a monotonically ordered stream.  Returns the dict;
-        writes it to ``path`` when given."""
+        metadata naming events.  A device-timed span appears a second
+        time on the :data:`DEVICE_TRACK` lane, at its device times, so
+        the host's spans and the device's work show side by side.  Events
+        are sorted by timestamp, so consumers see a monotonically ordered
+        stream; ``otherData.clock_anchor`` holds :meth:`anchor`.  Returns
+        the dict; writes it to ``path`` when given."""
+        self.resolve()
         with self._lock:
             spans = list(self._done)
             if include_open:
@@ -327,19 +488,23 @@ class Tracer:
         pids: dict[str, int] = {}
         tids: dict[tuple, int] = {}
         meta, events = [], []
-        for s in spans:
-            proc, thread = s.track[0], s.track
+
+        def lane(track):
+            proc = track[0]
             if proc not in pids:
                 pids[proc] = len(pids) + 1
                 meta.append({"ph": "M", "name": "process_name",
                              "pid": pids[proc], "tid": 0,
                              "args": {"name": proc}})
-            if thread not in tids:
-                tids[thread] = len(tids) + 1
+            if track not in tids:
+                tids[track] = len(tids) + 1
                 meta.append({"ph": "M", "name": "thread_name",
-                             "pid": pids[proc], "tid": tids[thread],
-                             "args": {"name": s.track[1]}})
-            pid, tid = pids[proc], tids[thread]
+                             "pid": pids[proc], "tid": tids[track],
+                             "args": {"name": track[1]}})
+            return pids[proc], tids[track]
+
+        for s in spans:
+            pid, tid = lane(s.track)
             args = {k: v for k, v in s.attrs.items()}
             args["sid"] = s.sid
             if s.parent is not None:
@@ -356,9 +521,101 @@ class Tracer:
                     "ts": round(ev.ts * 1e6, 3), "pid": pid, "tid": tid,
                     "s": "t", "args": dict(ev.attrs, span_sid=s.sid),
                 })
+            if s.device_start is not None:
+                dpid, dtid = lane(DEVICE_TRACK)
+                events.append({
+                    "name": s.name, "cat": s.cat, "ph": "X",
+                    "ts": round(s.device_start * 1e6, 3),
+                    "dur": round((s.device_end - s.device_start) * 1e6, 3),
+                    "pid": dpid, "tid": dtid, "args": {"span_sid": s.sid},
+                })
         events.sort(key=lambda e: (e["ts"], e.get("dur", 0.0) * -1))
-        data = {"traceEvents": meta + events, "displayTimeUnit": "ms"}
+        data = {"traceEvents": meta + events, "displayTimeUnit": "ms",
+                "otherData": {"clock_anchor": list(self.anchor())}}
         if path is not None:
             with open(path, "w") as f:
                 json.dump(data, f)
         return data
+
+
+# --------------------------------------------------------- layer spans ----
+
+class SpanScope:
+    """The open spans of one traced call (an engine step, a train step).
+    Code below the call opens its spans here, through :data:`SPANS`, as
+    children of the innermost open one, timed on ``device`` as well."""
+
+    __slots__ = ("tracer", "device", "stack")
+
+    def __init__(self, tracer: Tracer, device, root: Span):
+        self.tracer, self.stack = tracer, [root]
+        # a device that records nothing is not passed on span by span
+        self.device = device if device is not None and \
+            device.type == "cuda" else None
+
+    def begin(self, name: str, cat: str, timed: bool = True,
+              **attrs) -> Span:
+        sp = self.tracer.begin(name, cat=cat, parent=self.stack[-1],
+                               device=self.device if timed else None,
+                               **attrs)
+        self.stack.append(sp)
+        return sp
+
+    def end(self, sp: Span, **attrs) -> None:
+        """Close ``sp``, the innermost open span."""
+        self.stack.pop()
+        self.tracer.end(sp, **attrs)
+
+    @contextmanager
+    def span(self, name: str, cat: str, timed: bool = True, **attrs):
+        sp = self.begin(name, cat, timed, **attrs)
+        try:
+            yield sp
+        finally:
+            self.end(sp)
+
+    def layers(self, names: list, marks: list, cat: str) -> None:
+        """Host-timed spans of back-to-back intervals under the innermost
+        open span: ``names[i]`` from ``marks[i]`` to ``marks[i + 1]`` (a
+        layer loop reads the clock once a boundary; the spans are made
+        after it, in one go)."""
+        self.tracer.add(self.stack[-1], names, marks, cat)
+
+    @contextmanager
+    def under(self, sp: Span):
+        """Make ``sp``, opened elsewhere, the parent of the spans opened
+        inside."""
+        self.stack.append(sp)
+        try:
+            yield
+        finally:
+            self.stack.pop()
+
+
+#: the :class:`SpanScope` of the traced call in progress (None: untraced)
+SPANS: contextvars.ContextVar[Optional[SpanScope]] = contextvars.ContextVar(
+    "repro_torch_spans", default=None)
+
+
+@contextmanager
+def span_scope(tracer: Tracer, device, name: str, cat: str, track: tuple,
+               **attrs):
+    """Open the root span ``name`` of a traced call (device-timed on
+    ``device``) and install its :class:`SpanScope` in :data:`SPANS` until
+    the call returns; yields the scope."""
+    root = tracer.begin(name, cat=cat, track=track, device=device, **attrs)
+    sc = SpanScope(tracer, device, root)
+    tok = SPANS.set(sc)
+    try:
+        yield sc
+    finally:
+        SPANS.reset(tok)
+        tracer.end(root)
+
+
+def scoped(name: str, cat: str, timed: bool = True, **attrs):
+    """A context manager for one span in the current scope; outside one a
+    no-op (the cost: one context-variable read)."""
+    sc = SPANS.get()
+    return nullcontext() if sc is None else sc.span(name, cat, timed,
+                                                    **attrs)

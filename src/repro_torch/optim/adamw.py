@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
+from repro_torch.monitoring.trace import scoped
 from repro_torch.tree import leaves, tree_map
 
 f32 = torch.float32
@@ -92,7 +93,8 @@ def adamw_update(params, grads, state, opt: OptimizerConfig, owned=None,
     (params, state, metrics) with ``metrics = {"grad_norm", "lr"}``.
     ``owned``/``group``: see :func:`global_norm`."""
     step = state["step"] + 1
-    gnorm = global_norm(grads, owned, group)
+    with scoped("grad_norm", "train"):
+        gnorm = global_norm(grads, owned, group)
     scale = torch.clamp(opt.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = lr_schedule(step, opt)
     stepf = step.to(f32)

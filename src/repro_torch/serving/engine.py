@@ -99,6 +99,7 @@ from repro_torch.models.paging import (
     TwoLevelPageTable, pages_for,
 )
 from repro_torch.monitoring import MetricsRegistry, Tracer
+from repro_torch.monitoring.trace import SPANS, SpanScope, span_scope
 from repro_torch.monitoring.metrics import (
     METRIC_SERVE_KV_PAGES_IN_USE, METRIC_SERVE_PREEMPTIONS,
     METRIC_SERVE_PREFIX_EVICTIONS, METRIC_SERVE_PREFIX_HITS,
@@ -673,27 +674,31 @@ class DecodeEngine:
     def _free_slots(self):
         return [i for i, r in enumerate(self.slots) if r is None]
 
-    def _admit(self):
+    def _admit(self) -> int:
         """Fill free slots from the admission controller; then let blocked
         high-QOS requests preempt one preemptable slot each.  In paged
         mode the pick is additionally gated on the prefill fitting the
-        free page pool."""
+        free page pool.  Returns how many requests were placed."""
         eligible = self._fits_pages if self.paging is not None else None
+        placed = 0
         for slot in self._free_slots():
             req = self.admission.next_request(eligible=eligible)
             if req is None:
-                return
+                return placed
             self._place(slot, req)
+            placed += 1
         # QOS preemption: each blocked preempting request evicts exactly
         # one victim slot (bounded per pass against cyclic QOS tables)
         for _ in range(self.num_slots):
             running = [r for r in self.slots if r is not None]
             pick = self.admission.next_preempting(running)
             if pick is None:
-                return
+                return placed
             req, victim = pick
             slot = self._evict(victim)
             self._place(slot, req)
+            placed += 1
+        return placed
 
     def _place(self, slot: int, req: Request):
         """Budgeted mode queues a partial prefill (chunked across
@@ -796,8 +801,11 @@ class DecodeEngine:
                 return
             if self.prefix is not None:
                 self._count_prefix(len(shared))
+        sc = SPANS.get() if psp is not None else None
         with self.metrics.timer("serve_prefill_seconds", "prefill latency"):
-            with torch.no_grad(), self.tp_scope():
+            with torch.no_grad(), self.tp_scope(), \
+                    (sc.under(psp) if sc is not None
+                     else contextlib.nullcontext()):
                 if shared:
                     logits, cache1, L = self._prefill_suffix(toks, shared)
                 else:
@@ -1399,12 +1407,38 @@ class DecodeEngine:
         """Admit + one batched decode call (``decode_chunk`` tokens per
         slot on the fused path, one on the host loop, a verify round under
         speculation; the budgeted iteration with ``max_batch_tokens``).
-        Returns #active + #queued."""
+        Returns #active + #queued.
+
+        Traced, the call is a ``step`` span with children ``admit``
+        (device-timed; the PREFILL spans run inside it), ``pages`` and,
+        on the fused path, ``decode_chunk`` (``stage``, ``launch``,
+        ``wait``) and ``book``."""
         if self._clock is not None:
             self._clock.tick()
-        self._admit()
+        tr = self.tracer
+        if tr is None:
+            return self._step(None)
+        with span_scope(tr, self.device, "step", cat="step",
+                        track=("serving:engine", "step")) as sc:
+            try:
+                return self._step(sc)
+            finally:
+                # the chunk's .cpu() wait has synchronized: read the
+                # step's device times and re-anchor
+                tr.sync_point(self.device)
+
+    def _step(self, sc: Optional[SpanScope]) -> int:
+        if sc is None:
+            self._admit()
+        else:
+            with sc.span("admit", "step") as sp:
+                sp.attrs["admitted"] = self._admit()
+        pages = sc.begin("pages", "step", timed=False) \
+            if sc is not None else None
         self._update_pool_gauges()
         if self.max_batch_tokens is not None:
+            if pages is not None:
+                sc.end(pages)
             return self._step_budgeted()
         active = [i for i, r in enumerate(self.slots) if r is not None]
         if self.paging is not None and active:
@@ -1417,6 +1451,8 @@ class DecodeEngine:
             # growth may have evicted/requeued slots at ANY index (a
             # reclaim victim can precede its requester) — rebuild
             active = [i for i, r in enumerate(self.slots) if r is not None]
+        if pages is not None:
+            sc.end(pages)
         if not active:
             return self.admission.pending()
         if self.speculate:
@@ -1471,43 +1507,71 @@ class DecodeEngine:
         first in the same call: it reads the pool before its own lines and
         the lanes' are written, and its pages are disjoint from the
         lanes'.  Returns ``(generated_tokens, chunk_logits_or_None)``."""
-        done, eos, temps = self._lane_vectors()
         n = self.decode_chunk if num_tokens is None else num_tokens
         tr = self.tracer
-        csp = tr.begin("decode_chunk", cat="engine",
-                       track=("serving:engine", "dispatch"),
-                       active=len(active)) if tr is not None else None
-        page_table = limit = None
-        if self.paging is not None:
-            limit = self._put(np.array([
-                self._capacity(i) if self.slots[i] is not None
-                else self.cache_len
-                for i in range(self.num_slots)], np.int32))
-            page_table = self._put(self._dispatch_table())
-        self._check_lockstep(
-            "decode", n, None if page_table is None else page_table.shape[1],
-            None if chunk_plan is None else (chunk_plan.part.req.rid,
-                                             chunk_plan.start))
-        t0 = time.perf_counter()
-        chunk_out = None
-        if chunk_plan is not None:
-            chunk_out = self._run_chunk(chunk_plan)
-        with torch.no_grad(), self.tp_scope():
+        sc = SPANS.get() if tr is not None else None
+        csp = None
+        if tr is not None:
+            # the batch's make-up: lanes (``active``), token steps, the
+            # lines the lanes hold at the start, the longest, and (below)
+            # the page table's width
+            ctx = [int(self.pos[i]) for i in active]
+            csp = tr.begin(
+                "decode_chunk", cat="engine",
+                track=("serving:engine", "dispatch"),
+                parent=sc.stack[-1] if sc is not None else None,
+                active=len(active), decode_tokens=n,
+                live_lines=sum(ctx), max_context=max(ctx, default=0),
+                table_width=0)
+        part = sc.under(csp) if sc is not None else contextlib.nullcontext()
+        with part, torch.no_grad(), self.tp_scope():
+            stage = sc.begin("stage", "step", timed=False) \
+                if sc is not None else None
+            done, eos, temps = self._lane_vectors()
+            page_table = limit = None
+            if self.paging is not None:
+                limit = self._put(np.array([
+                    self._capacity(i) if self.slots[i] is not None
+                    else self.cache_len
+                    for i in range(self.num_slots)], np.int32))
+                page_table = self._put(self._dispatch_table())
+                if csp is not None:
+                    csp.attrs["table_width"] = int(page_table.shape[1])
+            self._check_lockstep(
+                "decode", n,
+                None if page_table is None else page_table.shape[1],
+                None if chunk_plan is None else (chunk_plan.part.req.rid,
+                                                 chunk_plan.start))
+            lanes = [self._put(a) for a in (
+                self.last_tok, self.pos.astype(np.int32),
+                self.remaining.astype(np.int32), done, eos, temps)]
+            if stage is not None:
+                sc.end(stage)
+            t0 = time.perf_counter()
+            launch = sc.begin("launch", "step") if sc is not None else None
+            chunk_out = None
+            if chunk_plan is not None:
+                chunk_out = self._run_chunk(chunk_plan)
             toks, self.cache, token, pos, remaining, done_d = decode_n(
-                self.params, self.cache, self._put(self.last_tok),
-                self._put(self.pos.astype(np.int32)),
-                self._put(self.remaining.astype(np.int32)), self._put(done),
-                self._put(eos), self._put(temps), self._gen, self.cfg,
+                self.params, self.cache, *lanes, self._gen, self.cfg,
                 self.run, n, self.cache_len,
                 page_table=page_table, limit=limit)
+            if launch is not None:
+                sc.end(launch)
+                wait = sc.begin("wait", "step", timed=False)
             # ONE sync per chunk: everything below is host-side numpy
             toks, pos, token, remaining, done_d = (
                 t.cpu().numpy() for t in (toks, pos, token, remaining,
                                           done_d))
+            if launch is not None:
+                sc.end(wait)
         self.metrics.histogram("serve_decode_seconds",
                                "batched decode-step latency").observe(
             time.perf_counter() - t0)
         ts_sync = tr.clock() if tr is not None else 0.0
+        # the JAX engine's decode_chunk ends at the sync: booking follows
+        book = sc.begin("book", "step", timed=False) \
+            if sc is not None else None
         charges = []
         tenant_tokens: dict[str, int] = {}
         total = 0
@@ -1547,6 +1611,8 @@ class DecodeEngine:
         if csp is not None:
             tr.end(csp, ts=ts_sync, tokens=total)
         self._book_tokens(charges, tenant_tokens, total)
+        if book is not None:
+            sc.end(book)
         return total, chunk_out
 
     def _step_spec(self, active: list,

@@ -21,6 +21,7 @@ from repro_torch.configs.base import InputShape, ModelConfig, RunConfig
 from repro_torch.core.actshard import param_use_scope, tp_train_scope
 from repro_torch.core.zero import Layout
 from repro_torch.models.model import AUX_KEYS, hidden_len, loss_fn
+from repro_torch.monitoring.trace import scoped, span_scope
 from repro_torch.optim.adamw import OptimizerConfig, adamw_update
 from repro_torch.tree import leaves, unflatten
 
@@ -39,7 +40,8 @@ def init_opt_state_sharded(params, opt: OptimizerConfig, layout: Layout):
 
 
 def make_train_step(cfg: ModelConfig, run: RunConfig, mesh,
-                    opt: OptimizerConfig, local_batch: bool = False):
+                    opt: OptimizerConfig, local_batch: bool = False,
+                    tracer=None):
     """Returns ``step(params, opt_state, batch) -> (params, opt_state,
     metrics)``.  ``params`` and ``opt_state`` are this rank's shards (the
     whole trees on a one-cell mesh), ``batch`` the global batch: (B, ...)
@@ -55,7 +57,15 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, mesh,
     the dry run's arguments); microbatch i is then its rows ``[i * b/n,
     (i+1) * b/n)``.  The collectives are the same as the global batch's,
     and so is the step's sum over the global batch; only which rows share
-    a microbatch differs."""
+    a microbatch differs.
+
+    ``tracer`` (a ``monitoring.Tracer``) makes each step a ``train_step``
+    span with device-timed children ``forward``, ``backward`` (the
+    attention kernel's recomputed backward, ``attention_bwd``, inside),
+    ``reduce`` (each microbatch) and ``optimizer`` (``grad_norm``
+    inside); each step reads the device times of the steps before, and
+    re-anchors the device's clock, at its start, which follows the
+    caller's synchronize."""
     layout = Layout(cfg, mesh, run)
     n = run.microbatches
     # JAX casts in the microbatch loop only
@@ -86,16 +96,20 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, mesh,
     def grads_of(params, batch, rows: int):
         xs = [p.detach().requires_grad_(True) for p in leaves(params)]
         with tp_train_scope(layout.tp), param_use_scope(use):
-            loss, metrics = loss_fn(unflatten(params, xs),
-                                    rank_rows(batch, rows), cfg, run,
-                                    group=data_group)
+            with scoped("forward", "train"):
+                loss, metrics = loss_fn(unflatten(params, xs),
+                                        rank_rows(batch, rows), cfg, run,
+                                        group=data_group)
             # a leaf the forward does not read (the token table of an audio
             # stub's batch of frame embeddings) gets zeros, as jax.grad
             # gives
-            grads = torch.autograd.grad(loss, xs, allow_unused=True,
-                                        materialize_grads=True)
-        grads = layout.reduce_grads(list(grads), dtype=red_dtype,
-                                    seq=layout.seq_rows(hidden_len(batch)))
+            with scoped("backward", "train"):
+                grads = torch.autograd.grad(loss, xs, allow_unused=True,
+                                            materialize_grads=True)
+        with scoped("reduce", "train"):
+            grads = layout.reduce_grads(
+                list(grads), dtype=red_dtype,
+                seq=layout.seq_rows(hidden_len(batch)))
         if data_group is None:
             return grads, {k: v.detach() for k, v in metrics.items()}
         # each rank's metrics are its share of the global ones
@@ -105,6 +119,15 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, mesh,
         return grads, dict(zip(keys, vec.unbind()))
 
     def step(params, opt_state, batch):
+        if tracer is None:
+            return update(params, opt_state, batch)
+        device = leaves(params)[0].device
+        tracer.sync_point(device)
+        with span_scope(tracer, device, "train_step", cat="train",
+                        track=("training", "step")):
+            return update(params, opt_state, batch)
+
+    def update(params, opt_state, batch):
         B = next(iter(batch.values())).shape[0]
         if n == 1:
             grads, metrics = grads_of(params, batch, B)
@@ -132,11 +155,12 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, mesh,
         ps = leaves(params)
         views = [layout.opt_view(leaf, p) for leaf, p in
                  zip(layout.leaves, ps)]
-        _, opt_state, opt_metrics = adamw_update(
-            unflatten(params, views),
-            unflatten(params, layout.to_opt_layout(grads)), opt_state, opt,
-            owned=owned, group=norm_group)
-        layout.regather_params(ps)
+        with scoped("optimizer", "train"):
+            _, opt_state, opt_metrics = adamw_update(
+                unflatten(params, views),
+                unflatten(params, layout.to_opt_layout(grads)), opt_state,
+                opt, owned=owned, group=norm_group)
+            layout.regather_params(ps)
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         return params, opt_state, metrics

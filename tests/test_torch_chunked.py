@@ -146,15 +146,40 @@ def _fake_clock():
     return lambda: next(tick) * 1e-3
 
 
-def _trace_record(tracer):
-    """Every completed span in completion order, with its parent's name,
-    attributes and events: what two tracers on one clock must agree on."""
+#: attributes of the port's ``decode_chunk`` spans beyond the JAX engine's
+MAKEUP = ("decode_tokens", "live_lines", "max_context", "table_width")
+
+def _trace_record(tracer, cats):
+    """The completed spans of the categories ``cats`` (those the JAX
+    engine writes), in completion order: name, category, track, the
+    nearest compared ancestor's name, attributes and events, with every
+    stamp replaced by its rank among the compared spans' stamps.  The
+    port's own spans (its engine step and layers, outside ``cats``) read
+    the clock too, which shifts the stamps but not their order.  The
+    batch's make-up that the port adds to ``decode_chunk`` is set aside
+    (``MAKEUP``)."""
     spans = tracer.spans()
-    names = {s.sid: s.name for s in spans}
-    names.update({s.sid: s.name for s in tracer.open_spans()})
-    return [(s.name, s.cat, s.track, names.get(s.parent), s.start, s.end,
-             {k: v for k, v in s.attrs.items()},
-             [(e.name, e.ts, e.attrs) for e in s.events]) for s in spans]
+    every = {s.sid: s for s in spans + tracer.open_spans()}
+    kept = [s for s in spans if s.cat in cats]
+    stamps = sorted({t for s in kept
+                     for t in (s.start, s.end, *(e.ts for e in s.events))})
+    rank = {t: i for i, t in enumerate(stamps)}
+
+    def ancestor(s):
+        p = every.get(s.parent)
+        while p is not None and p.cat not in cats:
+            p = every.get(p.parent)
+        return None if p is None else p.name
+
+    return [(s.name, s.cat, s.track, ancestor(s), rank[s.start],
+             rank[s.end],
+             {k: v for k, v in s.attrs.items() if k not in MAKEUP},
+             [(e.name, rank[e.ts], e.attrs) for e in s.events])
+            for s in kept]
+
+
+def _cats(jax_tracer):
+    return {s.cat for s in jax_tracer.spans() + jax_tracer.open_spans()}
 
 
 def _mid_prefill_run(cls, req_cls, tracer_cls, cfg, params):
@@ -196,10 +221,14 @@ def test_preempt_mid_prefill_round_trips_like_jax(mid_prefill):
 def test_budgeted_trace_matches_jax(mid_prefill):
     """Chunked PREFILL spans (chunks, pos_filled, aborted on preemption),
     ADMIT/PREEMPT/RESUME events, decode-call spans and the SLO series: the
-    same record as the JAX engine's on one counting clock."""
+    same record as the JAX engine's on one counting clock (stamps compared
+    by rank; the port's decode calls also carry the batch's make-up)."""
     (_, tracer), (_, jtracer) = mid_prefill
-    rec = _trace_record(tracer)
-    assert rec == _trace_record(jtracer)
+    cats = _cats(jtracer)
+    rec = _trace_record(tracer, cats)
+    assert rec == _trace_record(jtracer, cats)
+    chunks = tracer.spans(name="decode_chunk")
+    assert chunks and all(set(MAKEUP) <= set(s.attrs) for s in chunks)
     prefills = [r for r in rec if r[0] == "PREFILL"]
     assert any(r[6].get("aborted") for r in prefills)
     assert all(r[6].get("chunked") for r in prefills)

@@ -213,14 +213,41 @@ def _fake_clock():
     return lambda: next(tick) * 1e-3
 
 
-def _trace_record(tracer):
-    """Every completed span in completion order, with its parent's name,
-    attributes and events: what two tracers on one clock must agree on."""
+#: attributes of the port's ``decode_chunk`` spans beyond the JAX engine's
+MAKEUP = ("decode_tokens", "live_lines", "max_context", "table_width")
+
+def _trace_record(tracer, cats):
+    """The completed spans of the categories ``cats`` (those the JAX
+    engine writes), in completion order: name, category, track, the
+    nearest compared ancestor's name, attributes and events, with every
+    stamp replaced by its rank among the compared spans' stamps.  The
+    port's own spans (its engine step and layers, outside ``cats``) read
+    the clock too, which shifts the stamps but not their order.  The
+    batch's make-up that the port adds to ``decode_chunk`` is set aside
+    (``MAKEUP``)."""
     spans = tracer.spans()
-    names = {s.sid: s.name for s in spans}
-    return [(s.name, s.cat, s.track, names.get(s.parent), s.start, s.end,
-             dict(s.attrs), [(e.name, e.ts, e.attrs) for e in s.events])
-            for s in spans]
+    every = {s.sid: s for s in spans + tracer.open_spans()}
+    kept = [s for s in spans if s.cat in cats]
+    stamps = sorted({t for s in kept
+                     for t in (s.start, s.end, *(e.ts for e in s.events))})
+    rank = {t: i for i, t in enumerate(stamps)}
+
+    def ancestor(s):
+        p = every.get(s.parent)
+        while p is not None and p.cat not in cats:
+            p = every.get(p.parent)
+        return None if p is None else p.name
+
+    return [(s.name, s.cat, s.track, ancestor(s), rank[s.start],
+             rank[s.end],
+             {k: v for k, v in s.attrs.items() if k not in MAKEUP},
+             [(e.name, rank[e.ts], e.attrs) for e in s.events])
+            for s in kept]
+
+
+def _cats(jax_tracer):
+    return {s.cat for s in jax_tracer.spans() + jax_tracer.open_spans()}
+
 
 def _host_run(cls, req_cls, adm_cls, tracer_cls, cfg, params, page_size):
     """The trace test's preemption scenario (``tests/test_trace.py``) on
@@ -271,12 +298,14 @@ def test_host_loop_identical_to_jax(models, host_ref, page_size):
 def test_host_loop_trace_matches_jax(models, host_ref):
     """One request trace with two DECODE spans around PREEMPT/RESUME, the
     QUEUED/PREFILL/DECODE spans and SLO series of the reference test — the
-    same record as the JAX engine's, span for span, on one clock."""
+    same record as the JAX engine's, span for span, on one clock (stamps
+    compared by rank)."""
     _, tcfg, _, tparams = models
     _, tracer = _host_run(DecodeEngine, Request, AdmissionController, Tracer,
                           tcfg, tparams, 16)
-    rec = _trace_record(tracer)
-    assert rec == _trace_record(host_ref[1])
+    cats = _cats(host_ref[1])
+    rec = _trace_record(tracer, cats)
+    assert rec == _trace_record(host_ref[1], cats)
     (victim,) = [r for r in rec if r[0].startswith("request")
                  and any(e[0] == "PREEMPT" for e in r[7])]
     decodes = [r for r in rec if r[0] == "DECODE" and r[2] == victim[2]]
