@@ -34,7 +34,15 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
    a request came back short.  Then a ``torch.profiler`` trace of one
    steady decode chunk, dense and paged: its wall time against the
    device's busy time, and the decode kernel's device time per token
-   step.
+   step.  Then the decode graphs (``models.model.DecodeGraphs``): 128
+   greedy requests on stablelm-3b (16-line pages, cache 256) and on
+   mamba2-780m (its SSM state), every ``decode_n`` call bit-identical to
+   eager ``decode_n`` on a copy of its state (tokens, lanes, cache), one
+   capture a page-table width, the replayed share and the graphs' memory
+   pool logged; 128 lanes of equal logits sampling at T 0.8, graphed and
+   eager, each fitting the softmax (chi-square) with no two replays
+   drawing alike; and the profiler naming the paged decode kernel in a
+   replay.
 5. serve modes — the same model through the engine's serving modes, each
    on its own requests: the prefix cache (a shared 64-token system
    prompt), token-budgeted chunked prefill (64 tokens), speculation with
@@ -1212,6 +1220,287 @@ def profile_phase(cfg, params, args, paged: bool,
             f"{busy_ms / chunk:.3f} ms per token step")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernels": len(spans),
             "decode_ms_per_step": step_ms}
+
+
+# --------------------------------------------------------- decode graphs ----
+
+#: the graph check's engines: a deployment's 128 slots, a cache short
+#: enough to copy at every chunk, 16-line pages where the config pages
+GRAPH_ARGS = dict(slots=128, cache_len=256, decode_chunk=8)
+#: the sampling check: calls a side (a token a lane each), the lanes'
+#: temperature, and the chi-square bound on 10 bins of near-equal mass
+#: (9 degrees of freedom, p = 0.001)
+GRAPH_DRAW_CALLS, GRAPH_TEMP, GRAPH_CHI2 = 40, 0.8, 27.88
+
+
+def _tree_copy(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_copy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_copy(v) for v in tree]
+    return tree.clone()
+
+
+def _tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [tree]
+
+
+def graphs_checked(engine_module, stats: dict, paged: bool):
+    """Wrap the engine's ``decode_n``: each call runs as the engine makes
+    it (graphed on the card), then eager ``decode_n`` runs on a copy of
+    the state taken before it (the cache, the generator's state); both
+    are timed to a synchronize.  Tokens, lanes and cache must be
+    bit-identical (the paged pool but its null page, which every dead
+    lane writes in no fixed order and nothing reads unmasked).  Returns
+    the undo."""
+    real = engine_module.decode_n
+
+    def checked(params, cache, *a, page_table=None, limit=None,
+                graphs=None):
+        gen, n = a[6], a[9]
+        copy = _tree_copy(cache)
+        twin = torch.Generator(device=gen.device)
+        twin.set_state(gen.get_state())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(params, cache, *a, page_table=page_table, limit=limit,
+                   graphs=graphs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ref = real(params, copy, *a[:6], twin, *a[7:],
+                   page_table=page_table, limit=limit)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        same = all(torch.equal(x, y) for x, y in zip(
+            (out[0], *out[2:]), (ref[0], *ref[2:])))
+        for x, y in zip(_tree_leaves(cache), _tree_leaves(copy)):
+            if paged:
+                x, y = x[:, 1:], y[:, 1:]
+            same = same and torch.equal(x, y)
+        if not same:
+            raise AssertionError(
+                f"decode graphs: call {stats['calls']} (width "
+                f"{None if page_table is None else page_table.shape[1]}) "
+                "differs from eager decode_n on a copy of its state")
+        stats["calls"] += 1
+        stats["widths"].add(None if page_table is None
+                            else int(page_table.shape[1]))
+        if graphs is not None and graphs.replayed == n:
+            stats["replay_calls"] += 1
+            stats["graph_ms"] += 1e3 * (t1 - t0) / n
+            stats["eager_ms"] += 1e3 * (t2 - t1) / n
+        return out
+
+    engine_module.decode_n = checked
+    return lambda: setattr(engine_module, "decode_n", real)
+
+
+def graph_engine_check(cfg, params, paged: bool, max_new: int,
+                       device="cuda") -> dict:
+    """An engine on :data:`GRAPH_ARGS` serving 128 greedy requests (prompts
+    of 20-40 tokens, ``max_new`` tokens each) with every ``decode_n`` call
+    held to eager on a copy of its state (:func:`graphs_checked`); then
+    the graphs' pool: the memory the card keeps reserved while they live,
+    after ``empty_cache``, less what it keeps once they are freed."""
+    import repro_torch.serving.engine as engine_module
+    from repro_torch.monitoring import MetricsRegistry
+    from repro_torch.monitoring.metrics import (
+        METRIC_SERVE_DECODE_EAGER_STEPS, METRIC_SERVE_DECODE_GRAPH_CAPTURES,
+        METRIC_SERVE_DECODE_GRAPH_REPLAYS,
+    )
+    from repro_torch.serving import DecodeEngine, Request
+
+    a = GRAPH_ARGS
+    metrics = MetricsRegistry()
+    engine = DecodeEngine(cfg, params, num_slots=a["slots"],
+                          cache_len=a["cache_len"], metrics=metrics,
+                          seed=SEED, decode_chunk=a["decode_chunk"],
+                          prefill_buckets="auto",
+                          kv_page_size=16 if paged else 0, device=device)
+    rng = np.random.default_rng(SEED + 3)
+    requests = [Request(rid=i, prompt=rng.integers(
+        2, cfg.vocab_size, int(rng.integers(20, 41))).astype(np.int32),
+        max_new_tokens=max_new) for i in range(a["slots"])]
+    stats = {"calls": 0, "widths": set(), "replay_calls": 0,
+             "graph_ms": 0.0, "eager_ms": 0.0}
+    undo = graphs_checked(engine_module, stats, paged)
+    try:
+        for r in requests:
+            engine.submit(r)
+        engine.run_to_completion()
+    finally:
+        undo()
+    if not all(r.done and len(r.output) == max_new for r in requests):
+        raise AssertionError(f"decode graphs ({cfg.name}): a request came "
+                             "back short")
+    count = {k: int(metrics.counter(name).value()) for k, name in (
+        ("captures", METRIC_SERVE_DECODE_GRAPH_CAPTURES),
+        ("replays", METRIC_SERVE_DECODE_GRAPH_REPLAYS),
+        ("eager", METRIC_SERVE_DECODE_EAGER_STEPS))}
+    widths = sorted(stats["widths"], key=lambda w: -1 if w is None else w)
+    if count["captures"] != len(widths) or stats["calls"] < 4 or \
+            (paged and len(widths) < 2):
+        raise AssertionError(
+            f"decode graphs ({cfg.name}): {count['captures']} captures "
+            f"over {stats['calls']} calls at widths {widths}; want one a "
+            "width, >= 4 calls and, paged, a width change")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    engine.graphs = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    pool = held - torch.cuda.memory_reserved()
+    share = count["replays"] / max(count["replays"] + count["eager"], 1)
+    k = max(stats["replay_calls"], 1)
+    log(f"  decode graphs, {cfg.name} ({'paged' if paged else 'dense'}, "
+        f"{a['slots']} slots, greedy): {stats['calls']} decode_n calls at "
+        f"widths {widths} bit-identical to eager decode_n on a copy of "
+        f"their state (tokens, lanes, cache); captures {count['captures']}"
+        f", replayed {count['replays']} of "
+        f"{count['replays'] + count['eager']} token steps ({share:.1%}); a "
+        f"token step of a replay-only call {stats['graph_ms'] / k:.2f} ms "
+        f"graphed against {stats['eager_ms'] / k:.2f} ms eager (to a "
+        f"synchronize, {stats['replay_calls']} calls); graph pool "
+        f"{pool / 2**20:.1f} MiB")
+    del engine
+    return dict(count, calls=stats["calls"], widths=widths, pool=pool,
+                share=share, graph_ms=stats["graph_ms"] / k,
+                eager_ms=stats["eager_ms"] / k)
+
+
+def graph_sampling_check(cfg, params, device="cuda") -> dict:
+    """128 lanes that read the same pages at one position (so the same
+    logits) sample at :data:`GRAPH_TEMP`, one token a ``decode_n`` call:
+    :data:`GRAPH_DRAW_CALLS` calls replayed from a graph, then as many
+    eager ones from the generator's state before them.  Consecutive
+    replays must draw different tokens, and each side's draws, binned by
+    the rank of their probability into 10 bins of near-equal mass, must
+    fit the softmax (chi-square under :data:`GRAPH_CHI2`), as must the
+    two sides against each other.  Then the profiler must name the paged
+    decode kernel in two replays, once a layer each."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import RunConfig
+    from repro_torch.models.model import (
+        DecodeGraphs, decode_n, decode_step, init_cache,
+    )
+    from repro_torch.models.paging import PagedKVConfig
+
+    B, ps, pages, pos0 = GRAPH_ARGS["slots"], 16, 4, 40
+    lines = ps * pages
+    cache = init_cache(cfg, B, lines, device=device, paging=PagedKVConfig(
+        page_size=ps, num_pages=1 + pages, pages_per_seq=pages))
+    g = torch.Generator(device=device).manual_seed(SEED)
+    for t in _tree_leaves(cache):
+        t.normal_(generator=g)
+    i32 = dict(dtype=torch.int32, device=device)
+    table = torch.arange(1, pages + 1, **i32).repeat(B, 1)
+    lanes = (torch.full((B,), 7, **i32), torch.full((B,), pos0, **i32),
+             torch.full((B,), 10_000, **i32),
+             torch.zeros(B, dtype=torch.bool, device=device),
+             torch.full((B,), -1, **i32),
+             torch.full((B,), GRAPH_TEMP, dtype=torch.float32,
+                        device=device))
+    limit = torch.full((B,), lines, **i32)
+    run = RunConfig(use_kernels=True)
+    store = DecodeGraphs()
+
+    def draws(graphs, gen, calls):
+        out = []
+        with torch.no_grad():
+            for _ in range(calls):
+                toks, *_ = decode_n(params, cache, *lanes, gen, cfg, run, 1,
+                                    lines, page_table=table, limit=limit,
+                                    graphs=graphs)
+                out.append(toks[:, 0])
+        return torch.stack(out)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    draws(store, gen, 1)                   # the capture (its step eager)
+    state = gen.get_state()
+    graphed = draws(store, gen, GRAPH_DRAW_CALLS)
+    twin = torch.Generator(device=device)
+    twin.set_state(state)
+    eager = draws(None, twin, GRAPH_DRAW_CALLS)
+    same_state = torch.equal(gen.get_state(), twin.get_state())
+    with torch.no_grad():
+        logits, _ = decode_step(params, cache, lanes[0][:, None], lanes[1],
+                                cfg, run, page_table=table)
+    spread = float((logits[:, 0] - logits[:1, 0]).abs().max())
+    p = torch.softmax(logits[0, 0].float() / GRAPH_TEMP, dim=-1)
+    order = torch.argsort(p, descending=True)
+    before = torch.cumsum(p[order], 0) - p[order]
+    rank_bin = torch.clamp((before * 10).floor().long(), max=9)
+    bin_of = torch.empty_like(rank_bin)
+    bin_of[order] = rank_bin
+    mass = torch.zeros(10, device=device).index_add_(0, rank_bin, p[order])
+    n = graphed.numel()
+
+    def counts(x):
+        return torch.bincount(bin_of[x.flatten().long()],
+                              minlength=10).float()
+
+    def chi2(c, want):
+        keep = want > 0
+        return float(((c - want)[keep] ** 2 / want[keep]).sum())
+
+    cg, ce = counts(graphed), counts(eager)
+    stats = {"graph": chi2(cg, n * mass), "eager": chi2(ce, n * mass),
+             "two_sample": chi2(cg, (cg + ce) / 2) + chi2(ce, (cg + ce) / 2)}
+    repeats = sum(bool(torch.equal(graphed[i], graphed[i + 1]))
+                  for i in range(len(graphed) - 1))
+    bits = float((graphed == eager).float().mean())
+    sync(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        draws(store, gen, 2)
+        sync(device)
+    named = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                and "split_decode_kernel" in e.name)
+    log(f"  decode graphs, sampling at T {GRAPH_TEMP} ({B} lanes, same "
+        f"logits): {n} draws a side; chi-square (10 bins, bound "
+        f"{GRAPH_CHI2}) graphed {stats['graph']:.2f}, eager "
+        f"{stats['eager']:.2f}, graphed vs eager {stats['two_sample']:.2f}; "
+        f"consecutive replays with equal draws {repeats} of "
+        f"{len(graphed) - 1}; lanes' logits apart by at most {spread:.3g}; "
+        f"draws equal bit for bit {bits:.1%}; generator "
+        f"state after the replays {'equal' if same_state else 'unequal'} "
+        f"to eager's; profiler: {named} split_decode_kernel ops in 2 "
+        f"replays ({cfg.num_layers} layers each)")
+    if repeats or max(stats.values()) > GRAPH_CHI2:
+        raise AssertionError("decode graphs: replays repeat their noise or "
+                             "their draws do not fit the distribution")
+    return dict(stats, repeats=repeats, bits=bits, same_state=same_state,
+                named=named, want_named=2 * cfg.num_layers)
+
+
+def graph_phase(cfg, params, device="cuda") -> dict:
+    """Phase 4's check of the decode graphs: full-width ``cfg``
+    (stablelm-3b, bf16 ``params``) paged and greedy against eager, its
+    sampling, then full-width mamba2-780m (dense SSM state) greedy."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.model import cast_for_compute
+
+    out = {"paged": graph_engine_check(cfg, params, True, 49, device),
+           "sampling": graph_sampling_check(cfg, params, device)}
+    torch.cuda.empty_cache()
+    scfg = get_config("mamba2-780m")
+    sparams = cast_for_compute(init_params(scfg, SEED, device),
+                               torch.bfloat16)
+    out["ssm"] = graph_engine_check(scfg, sparams, False, 33, device)
+    del sparams
+    torch.cuda.empty_cache()
+    samp = out["sampling"]
+    if samp["named"] != samp["want_named"]:
+        raise AssertionError("decode graphs: the profiler does not name "
+                             "the paged decode kernel in a replay")
+    return out
 
 
 def route_logits(cfg, params, toks, use_kernels: bool, steps: int,
@@ -3918,8 +4207,9 @@ def run_dryrun(tpar, tp, args, at, started) -> dict:
     return dryrun_phase(tpar, tp, dict(PAR_ARGS, **args), started=started)
 
 
-#: the phases ``--only`` may pick
-ONLY = ("train-parallel", "resume", "examples")
+#: the phases ``--only`` may pick (``graphs``: phase 4's check of the
+#: decode graphs)
+ONLY = ("train-parallel", "resume", "examples", "graphs")
 
 
 def main(argv=None) -> int:
@@ -3929,7 +4219,8 @@ def main(argv=None) -> int:
                         "(phases 1-3 without the gradient checks) and "
                         "stop; prints no result line")
     parser.add_argument("--only", nargs="+", choices=ONLY,
-                        help="build, then run these of phases 13-16 alone "
+                        help="build, then run these of phases 13-16 (or "
+                        "phase 4's decode-graph check) alone "
                         "(train-parallel brings the dry run, which reads "
                         "its numbers) and stop; prints no result line")
     opts = parser.parse_args(argv)
@@ -4007,6 +4298,11 @@ def _phases(opts, smi, cfg, tcfg, targs, shape, at, t_start,
     dargs = dict(slots=shape["slots"], cache_len=shape["cache_len"],
                  decode_chunk=8)
     if opts.only:
+        if "graphs" in opts.only:
+            log(f"[4/17] {at()}: decode graphs: full-width {cfg.name} and "
+                "mamba2-780m, bf16, seed-0 weights")
+            graph_phase(cfg, cast_for_compute(init_params(cfg, SEED, "cuda"),
+                                              torch.bfloat16))
         if "train-parallel" in opts.only:
             tpar = run_train_parallel(tcfg, cfg, at)
         if "resume" in opts.only:
@@ -4057,6 +4353,7 @@ def _phases(opts, smi, cfg, tcfg, targs, shape, at, t_start,
     paged = serve_phase(cfg, params, True, dict(args, requests=4))
     profiles = {kind: profile_phase(cfg, params, args, kind == "paged")
                 for kind in ("dense", "paged")}
+    graph_phase(cfg, params)
 
     log(f"[5/17] {at()}: serve modes: full-width {cfg.name}, bf16, "
         f"{args['slots']} slots, cache {args['cache_len']}, 16-line pages, "

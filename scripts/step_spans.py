@@ -13,7 +13,11 @@ harness is handed one through ``make_train_step(..., tracer=)``.  It skips
 the reference check and prints one JSON line:
 
 * serving: per token step of the window's steps, the host time inside
-  ``launch`` (``decode_launch_ms``), inside ``wait``, and the ``step``
+  ``launch`` (``decode_launch_ms``; a chunk replayed from CUDA graphs is
+  a ``launch`` span with ``graphed`` set and no layer spans under it:
+  ``replayed_share`` of the window's token steps, and "no layer split
+  under replay"; the engine's graph counters), inside ``wait``, and the
+  ``step``
   spans' self time outside ``launch``, ``wait`` and PREFILL
   (``engine_host_ms``), beside the benchmark's ``decode_step_ms``; host
   ms a token step of each model span (``attention.decode``,
@@ -163,6 +167,7 @@ def serve_summary(rec: dict, export: dict) -> dict:
     n = sum(s["token_steps"] for s in window)
     parts = {"launch": 0.0, "wait": 0.0, "engine_host": 0.0, "step": 0.0,
              "after": 0.0}
+    graphed = [0, 0]                   # chunks, token steps replayed
     model: dict = {}
     split: dict = {}
     longest: dict = {}
@@ -175,7 +180,12 @@ def serve_summary(rec: dict, export: dict) -> dict:
         parts["after"] += sum(r["end"] - max(
             (s["end"] for s in inside if s["parent"] == r["sid"]),
             default=r["end"]) for r in roots)
-        launch = host_s(s for s in inside if s["name"] == "launch")
+        launches = [s for s in inside if s["name"] == "launch"]
+        launch = host_s(launches)
+        for s in launches:
+            if s["attrs"].get("graphed"):
+                graphed[0] += 1
+                graphed[1] += s["attrs"].get("replayed", 0)
         wait = host_s(s for s in inside if s["name"] == "wait")
         prefill = host_s(s for s in inside if s["name"] == "PREFILL")
         parts["launch"] += launch
@@ -207,6 +217,12 @@ def serve_summary(rec: dict, export: dict) -> dict:
     out["sum_over_step"] = (out["decode_launch_ms"] + out["wait_ms"]
                             + out["engine_host_ms"]) / max(
         out["decode_step_ms"], 1e-9)
+    # a chunk replayed from CUDA graphs runs no Python a layer: its
+    # ``launch`` span (``graphed``) has no token_step/attention/ffn/sample
+    out["graphed_chunks"] = graphed[0]
+    out["replayed_share"] = graphed[1] / n
+    if graphed[0] and not model:
+        out["layer_split"] = "no layer split under replay"
     traced = [s for s in rec["steps"] if s["traced"]]
     if traced and rec.get("trace"):
         prof = out["profiled"] = profiled_summary(
@@ -352,6 +368,11 @@ def use_harness():
     port.import_port()
 
 
+#: the serving engine's decode-graph counters (``models.model.DecodeGraphs``)
+GRAPH_COUNTERS = ("serve_decode_graph_captures",
+                  "serve_decode_graph_replays",
+                  "serve_decode_eager_token_steps")
+
 #: span categories this tracer's spans inside a step use (the others
 #: are the request lifecycle's)
 STEP_CATS = ("step", "model", "train", "kernel")
@@ -462,6 +483,10 @@ def traced_run(cell, seed: int, seconds: float, device="cuda",
         runner.Profiled = real_profiled
         gc.callbacks.remove(collected)
     tracer = made[-1] if made else real_tracer(clock=now)
+    # the engine's decode-graph counters, set-up included (the serving
+    # harness hands its registry to the tracer)
+    host["graphs"] = {name: tracer.metrics.counter(name).value()
+                      for name in GRAPH_COUNTERS}
     return rec, tracer.export(), host
 
 
@@ -472,6 +497,8 @@ def host_summary(rec: dict, export: dict, host: dict, n: int) -> dict:
     collection time it overlaps."""
     out = {"tracer_ms": {k: 1e3 * v / max(n, 1)
                          for k, v in host["tracer_s"].items()}}
+    if any(host.get("graphs", {}).values()):
+        out["graph_counters"] = host["graphs"]
     starts, every = {}, []
     for phase, gen, t in host["gc"]:
         if phase == "start":

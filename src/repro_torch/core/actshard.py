@@ -228,6 +228,14 @@ def seq_kv() -> bool:
     return _SEQ_KV.get()
 
 
+def collectives_scoped() -> bool:
+    """Whether model code run here may issue a collective: a serving
+    reduction scope, a training tensor-parallel plan or a ZeRO-3 gather is
+    installed."""
+    return (_TP_REDUCE.get() is not None or _TRAIN_TP.get() is not None
+            or _PARAM_USE.get() is not None)
+
+
 def _all_reduce_f32(x: torch.Tensor, group) -> torch.Tensor:
     """A new tensor: the sum of ``x`` over ``group``, reduced in f32 and
     returned in ``x``'s dtype."""

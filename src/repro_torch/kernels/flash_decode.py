@@ -72,11 +72,20 @@ def sm_count(device_index: int) -> int:
 #: splits, shared by the dense and paged launches (which run in stream
 #: order): zeroed once, and left at zero by every launch
 _counters: dict = {}
+#: buffers a larger one replaced, kept for good: a CUDA graph captured
+#: with one still writes to it (every launch leaves its counters at zero,
+#: so launches in stream order stay correct whichever buffer they use)
+_retired: list = []
 
 
 def _counter(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed counters on ``device``: the buffer handed out
+    before while it is large enough, else a new one (the old one is never
+    freed)."""
     buf = _counters.get(device)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _retired.append(buf)
         buf = torch.zeros(n, dtype=torch.int32, device=device)
         _counters[device] = buf
     return buf

@@ -145,3 +145,13 @@ def reset_launch_counts():
     _fd.launches = 0
     _fd.paged_launches = 0
     _ssd.launches = 0
+
+
+def add_launch_counts(counts: dict, times: int = 1):
+    """Add ``times`` x ``counts`` (a :func:`launch_counts` difference) to
+    the counters: a CUDA graph's replay launches what its capture counted,
+    and the capture itself launches nothing (``times=-1``)."""
+    _fa.launches += times * counts.get("flash_attention", 0)
+    _fd.launches += times * counts.get("flash_decode", 0)
+    _fd.paged_launches += times * counts.get("flash_decode_paged", 0)
+    _ssd.launches += times * counts.get("ssd_scan", 0)

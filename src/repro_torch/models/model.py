@@ -8,7 +8,9 @@ Entry points (plain functions of (params, inputs, cache)):
   * ``prefill(params, batch, cfg, run)``        -> (logits, cache slice)
   * ``decode_step(params, cache, token, pos, cfg, run)`` -> (logits, cache)
   * ``decode_n(params, cache, token, pos, ...)`` -> N tokens per call with
-    on-device sampling and per-slot stop masking (one host sync per chunk)
+    on-device sampling and per-slot stop masking (one host sync per chunk);
+    with ``graphs=`` (a ``DecodeGraphs``) its token steps replay a CUDA
+    graph on the card
   * ``prefill_suffix`` / ``prefill_chunk`` -> a prompt's tail against
     lines already in the paged pool (prefix-cache hits, chunked prefill)
   * ``verify_tokens`` -> k+1 positions per slot in one call (speculative
@@ -37,15 +39,21 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.actshard import (
-    seq_gather, seq_slice, snapshot, tp_enter, tp_exit, tp_gather_last,
-    tp_reduce, tp_share, tp_sum, tp_train, tp_train_scope, use_params,
+    collectives_scoped, seq_gather, seq_slice, snapshot, tp_enter, tp_exit,
+    tp_gather_last, tp_reduce, tp_share, tp_sum, tp_train, tp_train_scope,
+    use_params,
 )
+from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.init import torch_dtype
 from repro_torch.models.mlp import mlp_apply, rmsnorm
 from repro_torch.models.spec import group_period, layer_schedule
+from repro_torch.monitoring.metrics import (
+    METRIC_SERVE_DECODE_EAGER_STEPS, METRIC_SERVE_DECODE_GRAPH_CAPTURES,
+    METRIC_SERVE_DECODE_GRAPH_REPLAYS, MetricsRegistry,
+)
 from repro_torch.monitoring.trace import SPANS
 
 #: token emitted by finished slots inside a decode_n chunk (host drops them)
@@ -641,9 +649,44 @@ def sample_tokens(generator: torch.Generator, logits, temps):
     return torch.where(temps > 0, sampled, greedy)
 
 
+def _token_step(params, cache, tok, pos, rem, done, eos, temps, boundary,
+                generator, cfg: ModelConfig, run: RunConfig, page_table):
+    """One token step of :func:`decode_n`: decode, sample, stop masking.
+    Returns ``(emitted, tok, pos, remaining, done)`` after the step."""
+    sc = SPANS.get()
+    if sc is not None:
+        step = sc.begin("token_step", "model", False)
+    logits, _ = decode_step(params, cache, tok[:, None], pos, cfg, run,
+                            page_table=page_table)
+    if sc is not None:
+        sample = sc.begin("sample", "model", False)
+    nxt = sample_tokens(generator, logits[:, 0], temps)
+    live = ~done
+    new_pos = torch.where(live, pos + 1, pos)
+    new_rem = torch.where(live, rem - 1, rem)
+    hit_eos = (eos >= 0) & (nxt == eos)
+    done = done | (live & (hit_eos | (new_rem <= 0) | (new_pos >= boundary)))
+    out = (torch.where(live, nxt, PAD_TOKEN_ID), torch.where(live, nxt, tok),
+           new_pos, new_rem, done)
+    if sc is not None:
+        sc.end(sample)
+        sc.end(step)
+    return out
+
+
+def graph_eligible(device: torch.device, collectives: bool,
+                   grad: bool) -> bool:
+    """Whether :func:`decode_n` may replay its token step from a CUDA
+    graph: lanes on a CUDA device, no collective in reach of the model
+    code (``core.actshard.collectives_scoped``: gloo's all-reduces cannot
+    be captured), and no autograd."""
+    return device.type == "cuda" and not collectives and not grad
+
+
 def decode_n(params, cache, token, pos, remaining, done, eos, temps,
              generator: torch.Generator, cfg: ModelConfig, run: RunConfig,
-             num_tokens: int, cache_len: int, page_table=None, limit=None):
+             num_tokens: int, cache_len: int, page_table=None, limit=None,
+             graphs: Optional["DecodeGraphs"] = None):
     """Generate up to ``num_tokens`` tokens per slot in one call, with
     sampling and stop handling on the device so the host syncs once per
     chunk instead of once per token.
@@ -658,33 +701,173 @@ def decode_n(params, cache, token, pos, remaining, done, eos, temps,
     token; pos (B,) int32 position of ``token``; remaining (B,) int32;
     done (B,) bool; eos (B,) int32 (-1 = none); temps (B,) float32;
     generator (advanced in place); page_table (B, n_pages) int32 and
-    limit (B,) int32 in paged mode.
+    limit (B,) int32 in paged mode.  ``graphs`` (a :class:`DecodeGraphs`)
+    replays the token steps from a CUDA graph where
+    :func:`graph_eligible` allows, and counts the steps either way.
 
     Returns ``(tokens (B, N), cache, token, pos, remaining, done)``; per
     slot the first ``new_pos - old_pos`` tokens are real, the rest pad.
     """
+    lanes = (token, pos, remaining, done, eos, temps)
+    if graphs is not None and graph_eligible(
+            token.device, collectives_scoped(), torch.is_grad_enabled()):
+        return graphs.run(params, cache, lanes, generator, cfg, run,
+                          num_tokens, cache_len, page_table, limit)
     boundary = (cache_len - 1) if limit is None else (limit - 1)
     tok, rem = token, remaining
     emitted = []
-    sc = SPANS.get()
     for _ in range(num_tokens):
-        if sc is not None:
-            step = sc.begin("token_step", "model", False)
-        logits, cache = decode_step(params, cache, tok[:, None], pos, cfg,
-                                    run, page_table=page_table)
-        if sc is not None:
-            sample = sc.begin("sample", "model", False)
-        nxt = sample_tokens(generator, logits[:, 0], temps)
-        live = ~done
-        emitted.append(torch.where(live, nxt, PAD_TOKEN_ID))
-        new_pos = torch.where(live, pos + 1, pos)
-        new_rem = torch.where(live, rem - 1, rem)
-        hit_eos = (eos >= 0) & (nxt == eos)
-        done = done | (live & (hit_eos | (new_rem <= 0)
-                               | (new_pos >= boundary)))
-        tok = torch.where(live, nxt, tok)
-        pos, rem = new_pos, new_rem
-        if sc is not None:
-            sc.end(sample)
-            sc.end(step)
+        out, tok, pos, rem, done = _token_step(
+            params, cache, tok, pos, rem, done, eos, temps, boundary,
+            generator, cfg, run, page_table)
+        emitted.append(out)
+    if graphs is not None:
+        graphs.count_eager(num_tokens)
     return torch.stack(emitted, dim=1), cache, tok, pos, rem, done
+
+
+def _leaf_ptrs(tree) -> tuple:
+    """The device addresses of a tree's tensors, in order."""
+    if isinstance(tree, dict):
+        return tuple(p for v in tree.values() for p in _leaf_ptrs(v))
+    if isinstance(tree, (list, tuple)):
+        return tuple(p for v in tree for p in _leaf_ptrs(v))
+    return (tree.data_ptr(),) if isinstance(tree, torch.Tensor) else ()
+
+
+class _StaticStep:
+    """:func:`decode_n`'s lanes in buffers of their own, and the token step
+    that reads them and writes its results back into them (the emitted
+    token into ``emitted``): the unit a CUDA graph captures."""
+
+    def __init__(self, params, cache, lanes, generator, cfg, run, cache_len,
+                 page_table, limit):
+        self.lanes = [torch.empty_like(x) for x in lanes]
+        self.table = None if page_table is None \
+            else torch.empty_like(page_table)
+        self.limit = None if limit is None else torch.empty_like(limit)
+        self.emitted = torch.empty(lanes[0].shape, dtype=torch.int32,
+                                   device=lanes[0].device)
+        self.call = (params, cache, generator, cfg, run, cache_len)
+        #: replays the step (set by :meth:`DecodeGraphs._first`; holds
+        #: the graph)
+        self.replay = None
+        #: kernel launches of one step (``kernels.ops.launch_counts``)
+        self.launches: dict = {}
+
+    def load(self, lanes, page_table, limit):
+        for buf, x in zip(self.lanes, lanes):
+            buf.copy_(x)
+        if self.table is not None:
+            self.table.copy_(page_table)
+        if self.limit is not None:
+            self.limit.copy_(limit)
+
+    def step(self):
+        params, cache, generator, cfg, run, cache_len = self.call
+        tok, pos, rem, done, eos, temps = self.lanes
+        boundary = (cache_len - 1) if self.limit is None \
+            else (self.limit - 1)
+        out = _token_step(params, cache, tok, pos, rem, done, eos, temps,
+                          boundary, generator, cfg, run, self.table)
+        for buf, x in zip((self.emitted, tok, pos, rem, done), out):
+            buf.copy_(x)
+
+
+class DecodeGraphs:
+    """One engine's CUDA graphs of :func:`decode_n`'s token step, which
+    replace the ~2,300 launches a token step of a full-width model makes
+    from Python by one graph launch.
+
+    A graph is keyed by what the call shows: the lanes' shapes and dtypes
+    (the batch), the page table's width (None: the dense cache), the
+    device, the addresses of the weights and the cache, the generator,
+    the config and the dense cache's length.  The first call with a new
+    key runs its first token step eagerly on the capture stream, then
+    captures the step; every later token step is a replay.  A call
+    copies the lanes into the graph's buffers once, replays, copies each
+    emitted token into its column, and hands back copies of the lanes.
+    The graphs share one memory pool (they never run at once) and are
+    freed with the store.  The sampling generator is registered with
+    every graph, so that each replay draws new noise, as an eager step
+    does; each replay adds its capture's kernel launches to
+    ``kernels.ops``' counters.  Counters in ``metrics``: captures,
+    replayed token steps, eager token steps."""
+
+    def __init__(self, metrics: Optional[MetricsRegistry] = None):
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self._steps: dict = {}
+        self._pool = self._stream = None
+        #: token steps the last call replayed (0: it ran eagerly)
+        self.replayed = 0
+
+    def count_eager(self, n: int):
+        self.metrics.counter(METRIC_SERVE_DECODE_EAGER_STEPS,
+                             "decode token steps run eagerly").inc(n)
+        self.replayed = 0
+
+    def run(self, params, cache, lanes, generator, cfg, run, num_tokens,
+            cache_len, page_table, limit):
+        """:func:`decode_n` through the graph of its key."""
+        token = lanes[0]
+        key = (tuple((x.shape, x.dtype) for x in lanes), token.device,
+               None if page_table is None else tuple(page_table.shape),
+               _leaf_ptrs(params), _leaf_ptrs(cache), id(generator),
+               id(cfg), id(run), cache_len if limit is None else None)
+        out = torch.empty((token.shape[0], num_tokens), dtype=torch.int32,
+                          device=token.device)
+        st = self._steps.get(key)
+        first = 0
+        if st is None:
+            st = _StaticStep(params, cache, lanes, generator, cfg, run,
+                             cache_len, page_table, limit)
+            st.load(lanes, page_table, limit)
+            self._first(st)
+            self._steps[key] = st
+            self.metrics.counter(METRIC_SERVE_DECODE_GRAPH_CAPTURES,
+                                 "decode token-step graphs captured").inc()
+            self.count_eager(1)
+            out[:, 0].copy_(st.emitted)
+            first = 1
+        else:
+            st.load(lanes, page_table, limit)
+        for j in range(first, num_tokens):
+            st.replay()
+            out[:, j].copy_(st.emitted)
+        n = num_tokens - first
+        kops.add_launch_counts(st.launches, n)
+        self.metrics.counter(METRIC_SERVE_DECODE_GRAPH_REPLAYS,
+                             "decode token steps replayed").inc(n)
+        self.replayed = n
+        tok, pos, rem, done = (x.clone() for x in st.lanes[:4])
+        return out, cache, tok, pos, rem, done
+
+    def _first(self, st: _StaticStep):
+        """Run the key's first token step eagerly on the capture stream
+        (it finds ready what a capture needs: the kernel libraries, the
+        decode kernels' counters, the products' workspace on that stream),
+        then capture the step there, with no span scope."""
+        dev = st.emitted.device
+        main = torch.cuda.current_stream(dev)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+            self._pool = torch.cuda.graph_pool_handle()
+        side = self._stream
+        side.wait_stream(main)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(st.call[2])
+        tok = SPANS.set(None)
+        try:
+            with torch.cuda.stream(side):
+                st.step()
+            before = kops.launch_counts()
+            with torch.cuda.graph(graph, pool=self._pool, stream=side,
+                                  capture_error_mode="thread_local"):
+                st.step()
+            after = kops.launch_counts()
+        finally:
+            SPANS.reset(tok)
+        main.wait_stream(side)
+        st.launches = {k: after[k] - before[k] for k in after}
+        kops.add_launch_counts(st.launches, -1)
+        st.replay = graph.replay

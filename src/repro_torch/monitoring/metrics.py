@@ -74,6 +74,14 @@ METRIC_SPEC_ACCEPTED = "serve_spec_accepted_total"
 #: running acceptance rate (accepted / proposed), a gauge
 METRIC_SPEC_ACCEPT_RATE = "serve_spec_acceptance_rate"
 
+# CUDA graphs of the fused decode token step (``models.model.DecodeGraphs``).
+#: token-step graphs captured
+METRIC_SERVE_DECODE_GRAPH_CAPTURES = "serve_decode_graph_captures"
+#: token steps replayed from a graph
+METRIC_SERVE_DECODE_GRAPH_REPLAYS = "serve_decode_graph_replays"
+#: token steps run eagerly (a capture's first step among them)
+METRIC_SERVE_DECODE_EAGER_STEPS = "serve_decode_eager_token_steps"
+
 # Elastic multi-replica serving (prefix-affinity router + autoscaler).
 #: per-replica queue depth (slot holders + queued), a gauge {replica=}
 METRIC_SERVE_REPLICA_LOAD = "serve_replica_load"

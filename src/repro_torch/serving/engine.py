@@ -12,8 +12,10 @@ The decode loop runs on the device: one call of ``models.model.decode_n``
 generates ``decode_chunk`` tokens per slot with sampling and stop masking
 on the device, and the host syncs ``tokens/pos/remaining/done`` once per
 chunk, then does admission, ledger and metrics work — so QOS preemption
-and fair-share picks happen at chunk boundaries.  ``fused=False`` keeps
-the per-token host loop (one ``decode_step`` and one host sample per
+and fair-share picks happen at chunk boundaries.  On the card the token
+steps replay CUDA graphs (``models.model.DecodeGraphs``, one per batch
+and page-table width) outside a tensor-parallel scope.  ``fused=False``
+keeps the per-token host loop (one ``decode_step`` and one host sample per
 token), the reference the fused path is held to.
 
 Prefill is **bucketed** when ``prefill_buckets`` is set: prompts pad at the
@@ -91,8 +93,9 @@ from repro_torch.core.actshard import tp_reduce_scope
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.model import (
-    cast_for_compute, compute_dtype, decode_n, decode_step, init_cache,
-    prefill, prefill_chunk, prefill_suffix, sample_tokens, verify_tokens,
+    DecodeGraphs, cast_for_compute, compute_dtype, decode_n, decode_step,
+    init_cache, prefill, prefill_chunk, prefill_suffix, sample_tokens,
+    verify_tokens,
 )
 from repro_torch.models.paging import (
     NULL_PAGE, PageAllocator, PagedKVConfig, ShardedAllocatorView,
@@ -303,6 +306,10 @@ class DecodeEngine:
         self.last_tok = np.zeros(num_slots, np.int32)
         self.remaining = np.zeros(num_slots, np.int64)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        #: the fused path's CUDA graphs of the token step (used where
+        #: ``models.model.graph_eligible`` allows: on the card, outside a
+        #: tensor-parallel scope)
+        self.graphs = DecodeGraphs(self.metrics)
         self._buckets = self._resolve_buckets(prefill_buckets)
         #: bucket lengths prefilled so far (the JAX engine's per-bucket
         #: compilations; eager PyTorch compiles nothing)
@@ -1412,7 +1419,9 @@ class DecodeEngine:
         Traced, the call is a ``step`` span with children ``admit``
         (device-timed; the PREFILL spans run inside it), ``pages`` and,
         on the fused path, ``decode_chunk`` (``stage``, ``launch``,
-        ``wait``) and ``book``."""
+        ``wait``) and ``book``; ``launch`` says whether the chunk
+        replayed graphs (``graphed``, ``replayed`` token steps), in which
+        case the model opens no spans under it."""
         if self._clock is not None:
             self._clock.tick()
         tr = self.tracer
@@ -1555,9 +1564,11 @@ class DecodeEngine:
             toks, self.cache, token, pos, remaining, done_d = decode_n(
                 self.params, self.cache, *lanes, self._gen, self.cfg,
                 self.run, n, self.cache_len,
-                page_table=page_table, limit=limit)
+                page_table=page_table, limit=limit, graphs=self.graphs)
             if launch is not None:
-                sc.end(launch)
+                # a graphed chunk has no layer spans: no Python runs a layer
+                sc.end(launch, graphed=self.graphs.replayed > 0,
+                       replayed=self.graphs.replayed)
                 wait = sc.begin("wait", "step", timed=False)
             # ONE sync per chunk: everything below is host-side numpy
             toks, pos, token, remaining, done_d = (
