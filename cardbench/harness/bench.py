@@ -86,7 +86,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
               "device": device_info}
     if trace and rec.get("trace"):
         t = rec["trace"]
-        device_info["busy_s"] = busy_us(t["ops"]) / 1e6
+        # a run over several cards gives its busy time averaged over
+        # them; one card's is its trace's
+        device_info["busy_s"] = t.get("busy_s", busy_us(t["ops"]) / 1e6)
         device_info["window_s"] = t["wall_s"]
         result["breakdown"] = breakdown(t["ops"])
     result["checks"] = checks

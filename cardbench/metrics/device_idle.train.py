@@ -1,5 +1,5 @@
 """1 - (union of the device operations' intervals / the profiled
-sub-window's wall time), in %."""
+sub-window's wall time), in %; over ranks, rank 0's card."""
 from harness.readers import idle_percent
 
 

@@ -1,4 +1,5 @@
-"""max_memory_allocated over the window (reset at its start), in GiB."""
+"""max_memory_allocated over the window (reset at its start), in GiB; over
+ranks, the rank that reads highest."""
 
 
 def read(rec):

@@ -79,7 +79,7 @@ def test_workload_resolves(w):
     assert NAME.match(w["name"]) and NAME.match(w["traffic"])
     assert w["chips"] in (1, 4) and 1 <= len(w["why"]) <= 200
     cell = spec.resolve(w["name"])
-    assert cell.traffic["kind"] in ("serve", "train")
+    assert cell.traffic["kind"] in ("serve", "train", "train_ranks")
     assert (spec.HERE / "harness" / f"{cell.traffic['kind']}.py").is_file()
     assert cell.limits["numbers"]
     names = {m["name"] for m in cell.end_to_end}
