@@ -17,6 +17,10 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
    shape at qwen2-7b widths, the families phase's MHA at Dh 128
    (qwen2-moe-a2.7b) and 12 query heads a kv head (starcoder2-3b), a
    ring-window case and a paged case with null pages, in bf16 and f32;
+   the SSD decode step at granite-4.0-h-micro's serving shape (384
+   lanes) and small widths, the attention kernels with an explicit
+   softmax scale, and at that cell's shapes (paged decode over 384
+   contexts of 256-6,144 lines, prefill at 2,048 tokens, GQA 4:1, Dh 64);
    the SSD scan at the training path's shape (full-width mamba2-780m),
    the JAX package's ``SSD_CASES``, a
    chunk that ``_pick_block`` shrinks and a chunk whose decays span the
@@ -727,6 +731,128 @@ def ssd_kernel_phase(cfg, batch: int, seq_len: int) -> dict:
         f"({plain / ms:.1f}x the kernel), library n/a ms, bound {b:.4f} ms "
         f"({by})")
     return {"ssd_scan": r}
+
+
+def ssd_decode_phase(cfg, lanes: int) -> dict:
+    """The SSD decode-step kernel against its plain version, in bf16 and
+    f32, at ``cfg``'s widths over ``lanes`` sequences (x, B and C slices
+    of one conv output, as ``ssm_decode`` hands them over) and at small
+    widths (N 4 to 128; P not a multiple of the block); the state after
+    the step held as tightly as y.  Then its time at ``cfg``'s shape
+    against the plain version's and the bytes' bound.  Then the attention
+    kernels with an explicit softmax scale against their plain versions
+    with the same scale, at small shapes and at ``cfg``'s serving shapes
+    (:func:`granite_attention_checks`)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_decode as sd
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    ssm = cfg.ssm
+    H, P, N = ssm.num_heads(cfg.d_model), ssm.head_dim, ssm.state
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def inputs(B, h, p, n, dtype):
+        # batch-minor, as the decode step's conv output lies
+        u = rand(gen, (h * p + 2 * n, B), dtype).t()
+        x = u[:, :h * p].reshape(B, h, p)
+        Bm, Cm = u[:, h * p:h * p + n], u[:, h * p + n:]
+        dt = torch.rand((B, h), generator=gen, device="cuda") * 0.099 + 1e-3
+        A = -(torch.rand((h,), generator=gen, device="cuda") * 15 + 1)
+        D = torch.rand((h,), generator=gen, device="cuda") + 0.5
+        state = rand(gen, (B, h, p, n), f32)
+        return state, x, dt, A, D, Bm, Cm
+
+    errs = []
+    for B, h, p, n in ((lanes, H, P, N), (3, 5, 24, 16), (2, 2, 7, 4),
+                       (4, 3, 64, 32), (1, 2, 96, 128)):
+        for dt_ in (bf16, f32):
+            state, x, dt, A, D, Bm, Cm = inputs(B, h, p, n, dt_)
+            plain_state = state.clone()
+            got = sd.ssd_decode_step_bhpn(state, x, dt, A, D, Bm, Cm)
+            want = ref.ssd_decode_step_ref(plain_state, x, dt, A, D, Bm, Cm)
+            what = f"state ({B},{h},{p},{n}) {str(dt_)[6:]}"
+            err = check("ssd_decode_step", got, want, dt_, what + " y",
+                        relative=True)
+            check("ssd_decode_step", state, plain_state, f32,
+                  what + " state", relative=True)
+            if dt_ == bf16 and B == lanes:
+                errs.append(err)
+    state, x, dt, A, D, Bm, Cm = inputs(lanes, H, P, N, bf16)
+    ms = time_ms(lambda: sd.ssd_decode_step_bhpn(state, x, dt, A, D, Bm,
+                                                 Cm))
+    plain = time_ms(lambda: ref.ssd_decode_step_ref(state, x, dt, A, D, Bm,
+                                                    Cm))
+    nbytes = lanes * (8 * H * P * N + 2 * (2 * H * P + 2 * N) + 4 * H) \
+        + 8 * H
+    flops = 6 * lanes * H * P * N
+    b, by = bound_ms(nbytes, flops, bf16)
+    r = dict(route="cuda", source="src/repro_torch/kernels/csrc/ssd_decode.cu",
+             replaces="the plain one-token step of models/ssm.py",
+             max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b,
+             bound_by=by, library_ms=None,
+             shape=f"state ({lanes},{H},{P},{N}) f32, x bf16 "
+                   f"({nbytes / 1e9:.3f} GB)")
+    log(f"  {'ssd_decode_step':<19} {r['shape']}: kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms ({plain / ms:.1f}x the kernel), bound "
+        f"{b:.4f} ms ({by}), {100 * b / ms:.1f}% of it")
+    scale = 0.015625
+    q, k, v = (rand(gen, (2, 192, n, 64), bf16) for n in (8, 2, 2))
+    check("flash_attention", ops.flash_attention(q, k, v, scale=scale),
+          ref.attention_ref(q, k, v, scale=scale), bf16,
+          f"q (2,192,8,64) scale {scale}")
+    pool_k, pool_v = (rand(gen, (9, 16, 2, 64), bf16) for _ in range(2))
+    table = torch.tensor([[1, 2, 3, 0], [4, 5, 6, 7]], dtype=torch.int32,
+                         device="cuda")
+    qd = rand(gen, (2, 1, 8, 64), bf16)
+    pos = torch.tensor([40, 63], dtype=torch.int32, device="cuda")
+    check("flash_decode_paged",
+          ops.flash_decode_paged(qd, pool_k, pool_v, table, pos, scale=scale),
+          ref.paged_decode_attention_ref(qd, pool_k, pool_v, table, pos,
+                                         scale=scale), bf16,
+          f"q (2,1,8,64) pages of 16 scale {scale}")
+    granite_attention_checks(cfg, lanes, gen)
+    return {"ssd_decode_step": r}
+
+
+def granite_attention_checks(cfg, lanes: int, gen, ps: int = 16,
+                             cache_len: int = 6144, prompt: int = 2048):
+    """The attention kernels at the serving cell's shapes of ``cfg``
+    (granite-4.0-h-micro: GQA 4:1, Dh 64, its ``attention_multiplier``):
+    the paged decode kernel over ``lanes`` sequences of contexts drawn
+    from 256 to ``cache_len`` lines in a pool of ``lanes * cache_len /
+    ps`` pages, in random order, null pages past each context, where the
+    split-KV partition and merge do their work; prefill attention at the
+    longest prompt.  The plain paged version runs 32 lanes at a time (its
+    GQA copy of the gathered lines is 4x the kernel's reads)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.attention import softmax_scale
+
+    bf16 = torch.bfloat16
+    H, K, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    scale = softmax_scale(cfg, Dh)
+    n_tab = cache_len // ps
+    num_pages = lanes * n_tab + 1
+    ctx = torch.randint(256, cache_len + 1, (lanes,), generator=gen,
+                        device="cuda")
+    table = (torch.randperm(num_pages - 1, generator=gen, device="cuda")
+             + 1)[:lanes * n_tab].reshape(lanes, n_tab).to(torch.int32)
+    live = torch.arange(n_tab, device="cuda")[None, :] * ps < ctx[:, None]
+    table = torch.where(live, table, torch.zeros_like(table))
+    pos = (ctx - 1).to(torch.int32)
+    q = rand(gen, (lanes, 1, H, Dh), bf16)
+    kp, vp = (rand(gen, (num_pages, ps, K, Dh), bf16) for _ in range(2))
+    got = ops.flash_decode_paged(q, kp, vp, table, pos, scale=scale)
+    want = torch.cat([ref.paged_decode_attention_ref(
+        q[i:i + 32], kp, vp, table[i:i + 32], pos[i:i + 32], scale=scale)
+        for i in range(0, lanes, 32)])
+    check("flash_decode_paged", got, want, bf16,
+          f"q ({lanes},1,{H},{Dh}) pool {num_pages}x{ps}x{K} ctx "
+          f"{int(ctx.min())}-{int(ctx.max())} scale {scale}")
+    del kp, vp, got, want
+    q, k, v = (rand(gen, (1, prompt, n, Dh), bf16) for n in (H, K, K))
+    check("flash_attention", ops.flash_attention(q, k, v, scale=scale),
+          ref.attention_ref(q, k, v, scale=scale), bf16,
+          f"q (1,{prompt},{H},{Dh}) {K} kv heads scale {scale}")
 
 
 def grad_phase():
@@ -1902,7 +2028,8 @@ def ssm_bucket_identity(cfg, args, device="cuda", layers=4) -> dict:
 def families_phase(args, device="cuda", reduced=False) -> dict:
     """The other model families through the serving engine, at full
     width (``reduced``: the reduced configs, for a rehearsal on the CPU):
-    SSM serving of mamba2-780m (no kernel on its path; then its f32
+    SSM serving of mamba2-780m (the SSD decode-step kernel the one
+    kernel on its path; then its f32
     bucketed-vs-exact check), MoE serving of qwen2-moe-a2.7b (dense,
     16-line pages, n-gram speculation over two waves; then the kernels
     against the plain versions on one request in f32 at 4 layers) and
@@ -1935,7 +2062,8 @@ def families_phase(args, device="cuda", reduced=False) -> dict:
         f"{args['slots']} slots, cache {args['cache_len']}, dense cache")
     params = init_params(cfg, SEED, device)
     runs.append(family_run(cfg, params, args, "serve", f"{cfg.name} dense",
-                           device, never=attn + ("ssd_scan",)))
+                           device, must=("ssd_decode_step",),
+                           never=attn + ("ssd_scan",)))
     profiles[cfg.name] = profile_phase(cfg, params, args, False, device)
     cons = {cfg.name: consistency_phase(
         cfg, cast_for_compute(params, torch.bfloat16), device, steps=4)}
@@ -4289,6 +4417,25 @@ def run_examples(at, hosts, cards) -> list:
             + examples_phase(hosts, ", beside the card's phases"))
 
 
+def main_path_launches(serve_runs, train, clus, par_runs,
+                       resume) -> dict:
+    """Each kernel's launches summed over the main path: the serve runs'
+    (every kernel but the scan, which serving never runs), the kept
+    train steps' scan, the cluster phase's jobs, the train-parallel runs
+    and the resume phase's steps."""
+    from repro_torch.kernels import ops
+
+    names = list(ops.launch_counts())
+    launches = {name: sum(r["launches"][name] for r in serve_runs)
+                for name in names if name != "ssd_scan"}
+    launches["ssd_scan"] = train["launches"]["ssd_scan"]
+    for name in names:
+        launches[name] += clus["launches"][name]
+        launches[name] += sum(r["launches"][name] for r in par_runs)
+        launches[name] += resume["launches"].get(name, 0)
+    return launches
+
+
 def _phases(opts, smi, cfg, tcfg, targs, shape, at, t_start,
             started, hosts) -> int:
     """Phases 3-17 of :func:`main`."""
@@ -4326,6 +4473,9 @@ def _phases(opts, smi, cfg, tcfg, targs, shape, at, t_start,
     kernels = kernel_phase(shape)
     kernels.update(ssd_kernel_phase(tcfg, targs["batch"] //
                                     targs["microbatches"], targs["seq_len"]))
+    # the decode step at granite-4.0-h-micro's serving shape (384 lanes)
+    from repro_torch.configs import get_config as config_of
+    kernels.update(ssd_decode_phase(config_of("granite-4.0-h-micro"), 384))
     if opts.kernels_only:
         log(f"kernels only: stopped after the kernels' checks and times "
             f"({time.perf_counter() - t_start:.1f} s)")
@@ -4432,14 +4582,8 @@ def _phases(opts, smi, cfg, tcfg, targs, shape, at, t_start,
     # check, not the path, and log their launches on their own line
     serve_runs = [dense, paged, *modes.values(), *fam["runs"],
                   *elastic["runs"], *tp["runs"]]
-    launches = {name: sum(r["launches"][name] for r in serve_runs)
-                for name in ("flash_attention", "flash_decode",
-                             "flash_decode_paged")}
-    launches["ssd_scan"] = train["launches"]["ssd_scan"]
-    for name in launches:
-        launches[name] += clus["launches"][name]
-        launches[name] += sum(r["launches"][name] for r in tpar["runs"])
-        launches[name] += resume["launches"].get(name, 0)
+    launches = main_path_launches(serve_runs, train, clus, tpar["runs"],
+                                  resume)
     summary = {name: {"max_abs_err": r["max_abs_err"],
                       "launches": launches[name]}
                for name, r in kernels.items()}

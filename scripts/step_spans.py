@@ -21,7 +21,8 @@ the reference check and prints one JSON line:
   spans' self time outside ``launch``, ``wait`` and PREFILL
   (``engine_host_ms``), beside the benchmark's ``decode_step_ms``; host
   ms a token step of each model span (``attention.decode``,
-  ``ffn.prefill``...) and the engine's host time by span; in the
+  ``ssm.decode``, ``ssm_prefill.prefill``, ``ffn.prefill``...) and the
+  engine's host time by span; in the
   profiled step, the device ms of the ops each model span kind launched
   (by the profiler's correlation of each op with its launch call: layer
   spans are timed on the host only), the device's idle time split by the
@@ -373,6 +374,9 @@ GRAPH_COUNTERS = ("serve_decode_graph_captures",
                   "serve_decode_graph_replays",
                   "serve_decode_eager_token_steps")
 
+#: the engine's SSM gauges (hybrid and SSM configs)
+SSM_GAUGES = ("serve_ssm_state_bytes",)
+
 #: span categories this tracer's spans inside a step use (the others
 #: are the request lifecycle's)
 STEP_CATS = ("step", "model", "train", "kernel")
@@ -487,6 +491,8 @@ def traced_run(cell, seed: int, seconds: float, device="cuda",
     # harness hands its registry to the tracer)
     host["graphs"] = {name: tracer.metrics.counter(name).value()
                       for name in GRAPH_COUNTERS}
+    host["ssm"] = {name: tracer.metrics.gauge(name).value()
+                   for name in SSM_GAUGES}
     return rec, tracer.export(), host
 
 
@@ -499,6 +505,8 @@ def host_summary(rec: dict, export: dict, host: dict, n: int) -> dict:
                          for k, v in host["tracer_s"].items()}}
     if any(host.get("graphs", {}).values()):
         out["graph_counters"] = host["graphs"]
+    if any(host.get("ssm", {}).values()):
+        out["ssm_gauges"] = host["ssm"]
     starts, every = {}, []
     for phase, gen, t in host["gc"]:
         if phase == "start":

@@ -4,6 +4,7 @@ from repro_torch.configs.base import (
     InputShape,
     ModelConfig,
     MoEConfig,
+    PORT_ARCH_IDS,
     RunConfig,
     SSMConfig,
     default_opt_state_dtype,
@@ -15,6 +16,7 @@ from repro_torch.configs.base import (
 
 __all__ = [
     "ARCH_IDS", "INPUT_SHAPES", "InputShape", "ModelConfig", "MoEConfig",
+    "PORT_ARCH_IDS",
     "RunConfig", "SSMConfig", "default_opt_state_dtype",
     "default_run_config", "get_config",
     "get_reduced_config", "shape_for",

@@ -56,13 +56,15 @@ class ModelConfig:
     # attention details
     rope_theta: float = 1e4
     qkv_bias: bool = False
-    pos_embedding: str = "rope"   # rope | sinusoidal
+    pos_embedding: str = "rope"   # rope | sinusoidal | none (NoPE)
     sliding_window: Optional[int] = None  # None = full causal
     # FFN
     mlp_type: str = "swiglu"      # swiglu | gelu | relu2
     # mixer schedule (hybrid): 1 attention layer per `attn_every` layers,
     # the rest SSM.  attn_every=1 => all attention; 0 => attention-free.
     attn_every: int = 1
+    # the attention layer's place in each period of `attn_every` layers
+    attn_offset: int = 0
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     # modality frontend stub: none | vision | audio
@@ -73,16 +75,23 @@ class ModelConfig:
     dtype: str = "bfloat16"       # compute dtype
     param_dtype: str = "float32"  # storage dtype
     tie_embeddings: bool = False
+    # muP scalars (Granite): the token embedding times
+    # `embedding_multiplier`, every sublayer's output times
+    # `residual_multiplier` before its residual add, the attention softmax
+    # scale `attention_multiplier` (None: 1/sqrt(head_dim)), the logits
+    # divided by `logits_scaling`.  The defaults change nothing.
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: Optional[float] = None
+    logits_scaling: float = 1.0
 
     # ---- derived ----
     def layer_kinds(self) -> list[str]:
         """Mixer kind per layer: 'attn' or 'ssm'."""
         if self.attn_every == 0:
             return ["ssm"] * self.num_layers
-        kinds = []
-        for i in range(self.num_layers):
-            kinds.append("attn" if i % self.attn_every == 0 else "ssm")
-        return kinds
+        return ["attn" if i % self.attn_every == self.attn_offset else "ssm"
+                for i in range(self.num_layers)]
 
     def ffn_kinds(self) -> list[str]:
         """FFN kind per layer: 'dense' or 'moe'."""
@@ -175,6 +184,12 @@ ARCH_IDS = [
     "mamba2-780m",
     "dbrx-132b",
     "minitron-4b",
+]
+
+
+#: architectures the port serves beyond the JAX package's ten
+PORT_ARCH_IDS = [
+    "granite-4.0-h-micro",
 ]
 
 

@@ -22,7 +22,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: build/kernels at the repository root (listed in .gitignore)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("flash_attention.cu", "flash_decode.cu", "ssd_scan.cu")
+SOURCES = ("flash_attention.cu", "flash_decode.cu", "ssd_scan.cu",
+           "ssd_decode.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -46,6 +47,10 @@ SIGNATURES = {
     "ssd_scan": {
         "repro_ssd_scan": (
             [_c_ptr] * 10 + [_c_int] * 7 + [_c_i64] * 16 + [_c_ptr]),
+    },
+    "ssd_decode": {
+        "repro_ssd_decode_step": (
+            [_c_ptr] * 8 + [_c_int] * 5 + [_c_i64] * 7 + [_c_ptr]),
     },
 }
 

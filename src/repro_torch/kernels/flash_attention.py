@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ref import logits_scale
 
 #: kernel launches since the last reset (incremented only where the
 #: kernel is launched)
@@ -60,9 +61,10 @@ def _check(q, k, v):
             build.check_aligned("flash_attention", name, t)
 
 
-def attention_args(q, k, v, o, window, stream):
+def attention_args(q, k, v, o, window, stream, scale=None):
     """The argument list of ``repro_flash_attention``
-    (``build.SIGNATURES``) for the tensors of a call."""
+    (``build.SIGNATURES``) for the tensors of a call (``scale``: the
+    logits' scale, None for ``Dh ** -0.5``)."""
     B, S, H, Dh = q.shape
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             build.DTYPE_CODES[str(q.dtype).removeprefix("torch.")],
@@ -71,17 +73,18 @@ def attention_args(q, k, v, o, window, stream):
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             o.stride(0), o.stride(1), o.stride(2),
-            Dh ** -0.5, stream)
+            logits_scale(Dh, scale), stream)
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         window=None) -> torch.Tensor:
+                         window=None, scale=None) -> torch.Tensor:
     """Causal (optionally sliding-window) attention on the card.
 
     q: (B, S, H, Dh); k/v: (B, S, K, Dh) with H % K == 0; float32 or
     bfloat16; any strides with a unit last stride (in bfloat16, base
     pointers and strides in multiples of 16 bytes).  Returns a new
-    contiguous (B, S, H, Dh) tensor of q's dtype, f32 softmax inside."""
+    contiguous (B, S, H, Dh) tensor of q's dtype, f32 softmax inside of
+    the logits times ``scale`` (None: ``Dh ** -0.5``)."""
     global launches
     _check(q, k, v)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -89,7 +92,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_attention(*attention_args(q, k, v, o, window,
-                                                        stream))
+                                                        stream, scale))
     build.check(err, "flash_attention")
     launches += 1
     return o

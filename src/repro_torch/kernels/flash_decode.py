@@ -24,6 +24,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ref import logits_scale
 
 #: kernel launches since the last reset, per kernel (incremented only
 #: where the kernel is launched)
@@ -128,10 +129,12 @@ def _check_common(what, q, k, v, pos):
                          f"tensor, got {pos.dtype} {tuple(pos.shape)}")
 
 
-def dense_args(q, k, v, o, pos, part, counter, window, chunk, stream):
+def dense_args(q, k, v, o, pos, part, counter, window, chunk, stream,
+               scale=None):
     """The argument list of ``repro_flash_decode`` (``build.SIGNATURES``)
     for the tensors of a call; part and counter are the scratch and the
-    counters of :func:`flash_decode_bshd`."""
+    counters of :func:`flash_decode_bshd`, ``scale`` the logits' (None:
+    ``Dh ** -0.5``)."""
     B, _, H, Dh = q.shape
     S, K = k.shape[1], k.shape[2]
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -142,17 +145,19 @@ def dense_args(q, k, v, o, pos, part, counter, window, chunk, stream):
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             o.stride(0), o.stride(2),
-            Dh ** -0.5, stream)
+            logits_scale(Dh, scale), stream)
 
 
 def flash_decode_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      pos: torch.Tensor, window=None) -> torch.Tensor:
+                      pos: torch.Tensor, window=None,
+                      scale=None) -> torch.Tensor:
     """Single-query decode attention over a dense cache, on the card.
 
     q: (B, 1, H, Dh); k/v: (B, S, K, Dh) (slot i = position i, or a ring
     of S slots under ``window``), 16-byte aligned; pos: (B,) int32 —
     sequence b attends slots [0, pos_b], or under ``window`` the wrapped
-    slots holding positions (pos_b - window, pos_b].  Returns a new
+    slots holding positions (pos_b - window, pos_b]; ``scale`` multiplies
+    the logits (None: ``Dh ** -0.5``).  Returns a new
     (B, 1, H, Dh) tensor of q's dtype.  Launches on the current stream;
     calls on two streams of one device at once would share counters."""
     global launches
@@ -173,16 +178,18 @@ def flash_decode_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_decode(*dense_args(
-            q, k, v, o, pos, part, counter, window, chunk, stream))
+            q, k, v, o, pos, part, counter, window, chunk, stream, scale))
     build.check(err, "flash_decode")
     launches += 1
     return o
 
 
-def paged_args(q, k, v, o, page_table, pos, part, counter, chunk, stream):
+def paged_args(q, k, v, o, page_table, pos, part, counter, chunk, stream,
+               scale=None):
     """The argument list of ``repro_flash_decode_paged``
     (``build.SIGNATURES``) for the tensors of a call; part and counter are
-    the scratch and the counters of :func:`flash_decode_paged_bshd`."""
+    the scratch and the counters of :func:`flash_decode_paged_bshd`,
+    ``scale`` the logits' (None: ``Dh ** -0.5``)."""
     B, _, H, Dh = q.shape
     ps, K = k.shape[1], k.shape[2]
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -194,20 +201,21 @@ def paged_args(q, k, v, o, page_table, pos, part, counter, chunk, stream):
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             o.stride(0), o.stride(2),
-            Dh ** -0.5, stream)
+            logits_scale(Dh, scale), stream)
 
 
 def flash_decode_paged_bshd(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, page_table: torch.Tensor,
-                            pos: torch.Tensor) -> torch.Tensor:
+                            pos: torch.Tensor, scale=None) -> torch.Tensor:
     """Single-query decode attention over a paged pool, on the card.
 
     q: (B, 1, H, Dh); k/v: (num_pages, page_size, K, Dh) shared pool,
     16-byte aligned; page_table: (B, n_pages) int32, logical page ->
     physical page (0 = the null page); pos: (B,) int32 — sequence b
     attends logical positions [0, pos_b], which must lie inside its table
-    row.  Returns a new (B, 1, H, Dh) tensor of q's dtype.  Launches on
-    the current stream; calls on two streams of one device at once would
+    row; ``scale`` multiplies the logits (None: ``Dh ** -0.5``).  Returns
+    a new (B, 1, H, Dh) tensor of q's dtype.  Launches on the current
+    stream; calls on two streams of one device at once would
     share counters."""
     global paged_launches
     _check_common("flash_decode_paged", q, k, v, pos)
@@ -231,7 +239,8 @@ def flash_decode_paged_bshd(q: torch.Tensor, k: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_decode_paged(*paged_args(
-            q, k, v, o, page_table, pos, part, counter, chunk, stream))
+            q, k, v, o, page_table, pos, part, counter, chunk, stream,
+            scale))
     build.check(err, "flash_decode_paged")
     paged_launches += 1
     return o

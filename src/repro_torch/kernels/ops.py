@@ -2,7 +2,10 @@
 
 The contract is that of the JAX package's ``kernels/ops.py``:
 ``flash_attention``, ``flash_decode(window=)``, ``flash_decode_paged`` and
-``ssd_scan`` take model-layout tensors and return model-layout outputs.
+``ssd_scan`` take model-layout tensors and return model-layout outputs;
+the attention entry points take the logits' ``scale`` (None: ``Dh **
+-0.5``).  ``ssd_decode_step``, the port's own, has no TPU kernel behind
+it: it is the SSD recurrence's one-token step of serving.
 Dispatch goes by the tensors' device: a CUDA tensor launches the
 hand-written kernel (which reads the model layout through strides, so no
 transpose is materialised); a CPU tensor runs the kernel's plain version.
@@ -22,6 +25,7 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_decode as _ssd_step
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.monitoring.trace import SPANS
 
@@ -53,21 +57,23 @@ class _FlashAttention(torch.autograd.Function):
     """Kernel forward; backward through :func:`ref.attention_ref`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window):
+    def forward(ctx, q, k, v, window, scale=None):
         ctx.save_for_backward(q, k, v)
-        ctx.window = window
+        ctx.window, ctx.scale = window, scale
         # a traced step's span scope: the backward runs on autograd's own
         # thread, where it is not set
         ctx.spans = SPANS.get()
-        return _fa.flash_attention_bshd(q, k, v, window=window)
+        return _fa.flash_attention_bshd(q, k, v, window=window,
+                                        scale=scale)
 
     @staticmethod
     def backward(ctx, grad_o):
         sc = ctx.spans
         with (sc.span("attention_bwd", "kernel") if sc is not None
               else contextlib.nullcontext()):
-            return _recompute_grads(ctx, ref.attention_ref, grad_o,
-                                    ctx.window) + (None,)
+            grads = _recompute_grads(ctx, ref.attention_ref, grad_o,
+                                     ctx.window, ctx.scale)
+            return grads + (None,) * (len(ctx.needs_input_grad) - 3)
 
 
 class _SSDScan(torch.autograd.Function):
@@ -85,29 +91,33 @@ class _SSDScan(torch.autograd.Function):
                                 ctx.chunk) + (None,)
 
 
-def flash_attention(q, k, v, window=None):
+def flash_attention(q, k, v, window=None, scale=None):
     """q: (B, S, H, Dh); k/v: (B, S, K, Dh) -> (B, S, H, Dh).  Causal."""
     if _on_card(q):
-        return _FlashAttention.apply(q, k, v, window)
-    return ref.attention_ref(q, k, v, window=window)
+        return _FlashAttention.apply(q, k, v, window, scale)
+    return ref.attention_ref(q, k, v, window=window, scale=scale)
 
 
-def flash_decode(q, k, v, pos, window=None):
+def flash_decode(q, k, v, pos, window=None, scale=None):
     """q: (B, 1, H, Dh) roped query; k/v: (B, S, K, Dh) KV cache; pos:
     (B,) int32 — attends slots [0, pos_b], or the ring's wrapped slots
     under ``window``.  Returns (B, 1, H, Dh)."""
     if _on_card(q):
-        return _fd.flash_decode_bshd(q, k, v, pos, window=window)
-    return ref.decode_attention_ref(q, k, v, pos, window=window)
+        return _fd.flash_decode_bshd(q, k, v, pos, window=window,
+                                     scale=scale)
+    return ref.decode_attention_ref(q, k, v, pos, window=window,
+                                    scale=scale)
 
 
-def flash_decode_paged(q, k, v, page_table, pos):
+def flash_decode_paged(q, k, v, page_table, pos, scale=None):
     """q: (B, 1, H, Dh); k/v: (num_pages, page_size, K, Dh) pool;
     page_table: (B, n_pages) int32; pos: (B,) int32 — attends logical
     positions [0, pos_b].  Returns (B, 1, H, Dh)."""
     if _on_card(q):
-        return _fd.flash_decode_paged_bshd(q, k, v, page_table, pos)
-    return ref.paged_decode_attention_ref(q, k, v, page_table, pos)
+        return _fd.flash_decode_paged_bshd(q, k, v, page_table, pos,
+                                           scale=scale)
+    return ref.paged_decode_attention_ref(q, k, v, page_table, pos,
+                                          scale=scale)
 
 
 def _pick_block(S: int, target: int) -> int:
@@ -132,12 +142,23 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk: int = 256):
     return ref.ssd_scan_ref(x, dtf, a, Bm, Cm, Q)
 
 
+def ssd_decode_step(state, x, dt, A, D, Bm, Cm):
+    """One token of the SSD recurrence.  state: (B, H, P, N) float32,
+    updated in place; x: (B, H, P); dt: (B, H) float32 after the
+    softplus; A, D: (H,) float32; Bm/Cm: (B, N).  Returns y (B, H, P) in
+    x's dtype."""
+    if _on_card(x):
+        return _ssd_step.ssd_decode_step_bhpn(state, x, dt, A, D, Bm, Cm)
+    return ref.ssd_decode_step_ref(state, x, dt, A, D, Bm, Cm)
+
+
 def launch_counts() -> dict:
     """Kernel launches since the last :func:`reset_launch_counts`."""
     return {"flash_attention": _fa.launches,
             "flash_decode": _fd.launches,
             "flash_decode_paged": _fd.paged_launches,
-            "ssd_scan": _ssd.launches}
+            "ssd_scan": _ssd.launches,
+            "ssd_decode_step": _ssd_step.launches}
 
 
 def reset_launch_counts():
@@ -145,6 +166,7 @@ def reset_launch_counts():
     _fd.launches = 0
     _fd.paged_launches = 0
     _ssd.launches = 0
+    _ssd_step.launches = 0
 
 
 def add_launch_counts(counts: dict, times: int = 1):
@@ -155,3 +177,4 @@ def add_launch_counts(counts: dict, times: int = 1):
     _fd.launches += times * counts.get("flash_decode", 0)
     _fd.paged_launches += times * counts.get("flash_decode_paged", 0)
     _ssd.launches += times * counts.get("ssd_scan", 0)
+    _ssd_step.launches += times * counts.get("ssd_decode_step", 0)

@@ -14,21 +14,29 @@ import torch
 f32 = torch.float32
 
 
-def _attend(q, k, v, mask):
+def logits_scale(Dh: int, scale=None) -> float:
+    """The attention logits' scale: ``scale``, or ``Dh ** -0.5`` where
+    it is None (the kernels' and their plain versions' one default)."""
+    return Dh ** -0.5 if scale is None else scale
+
+
+def _attend(q, k, v, mask, scale=None):
     """q: (B, Sq, H, Dh); k/v: (B, Sk, K, Dh); mask broadcastable to
-    (B, H, Sq, Sk).  f32 softmax, output in q's dtype."""
+    (B, H, Sq, Sk).  f32 softmax of the logits times ``scale`` (None:
+    ``Dh ** -0.5``), output in q's dtype."""
     H, Dh = q.shape[2], q.shape[3]
     G = H // k.shape[2]
     kk = k.to(f32).repeat_interleave(G, dim=2)
     vv = v.to(f32).repeat_interleave(G, dim=2)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), kk) * (Dh ** -0.5)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), kk) * \
+        logits_scale(Dh, scale)
     logits = logits.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", probs, vv)
     return o.to(q.dtype)
 
 
-def attention_ref(q, k, v, window=None):
+def attention_ref(q, k, v, window=None, scale=None):
     """Naive causal (+ sliding window) attention.
 
     q: (B, S, H, Dh); k/v: (B, S, K, Dh), H % K == 0."""
@@ -37,10 +45,10 @@ def attention_ref(q, k, v, window=None):
     mask = pos[None, :] <= pos[:, None]
     if window is not None:
         mask &= (pos[:, None] - pos[None, :]) < window
-    return _attend(q, k, v, mask[None, None])
+    return _attend(q, k, v, mask[None, None], scale)
 
 
-def decode_attention_ref(q, k, v, pos, window=None):
+def decode_attention_ref(q, k, v, pos, window=None, scale=None):
     """Naive single-query decode attention over a dense cache.
 
     q: (B, 1, H, Dh); k/v: (B, S, K, Dh); pos: (B,) int.  Without
@@ -57,10 +65,10 @@ def decode_attention_ref(q, k, v, pos, window=None):
     else:
         slot_pos = p - torch.remainder(p - slot, S)
         valid = (slot_pos >= 0) & ((p - slot_pos) < window)
-    return _attend(q, k, v, valid[:, None, None, :])
+    return _attend(q, k, v, valid[:, None, None, :], scale)
 
 
-def paged_decode_attention_ref(q, k, v, page_table, pos):
+def paged_decode_attention_ref(q, k, v, page_table, pos, scale=None):
     """Naive paged decode attention.
 
     q: (B, 1, H, Dh); k/v: (num_pages, page_size, K, Dh) shared pool;
@@ -72,7 +80,7 @@ def paged_decode_attention_ref(q, k, v, page_table, pos):
     idx = page_table.to(torch.int64)
     kd = k[idx].reshape(B, n_pages * ps, K, Dh)
     vd = v[idx].reshape(B, n_pages * ps, K, Dh)
-    return decode_attention_ref(q, kd, vd, pos)
+    return decode_attention_ref(q, kd, vd, pos, scale=scale)
 
 
 def ssd_scan_ref(x, dt, a, Bm, Cm, chunk: int):
@@ -156,3 +164,22 @@ def ssd_ref(x, dt, A, Bm, Cm):
         state = state * decay[..., None, None] + dBx
         ys.append(torch.einsum("bhpn,bn->bhp", state, Cf[:, t]))
     return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def ssd_decode_step_ref(state, x, dt, A, D, Bm, Cm):
+    """One token of the SSD recurrence for every sequence, the plain
+    version of the decode-step kernel: the arithmetic of the JAX
+    package's one-token decode.
+
+    state: (B, H, P, N) float32, updated in place; x: (B, H, P); dt: (B,
+    H) post-softplus; A and D: (H,); Bm/Cm: (B, N).  ``state <- state
+    exp(dt A) + dt x B``, ``y = state . C + D x`` in f32; returns y (B,
+    H, P) in x's dtype."""
+    a = torch.exp(dt.to(f32) * A.to(f32))                     # (B,H)
+    xh = x.to(f32)
+    dBx = torch.einsum("bh,bhp,bn->bhpn", dt.to(f32), xh, Bm.to(f32))
+    new = state * a[:, :, None, None] + dBx
+    y = torch.einsum("bhpn,bn->bhp", new, Cm.to(f32))
+    y = y + xh * D.to(f32)[None, :, None]
+    state.copy_(new)
+    return y.to(x.dtype)

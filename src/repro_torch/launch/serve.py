@@ -41,8 +41,8 @@ from repro_torch.cluster import (
     Cluster, Node, Partition, ResourceRequest,
 )
 from repro_torch.cluster.commands import sdiag
-from repro_torch.configs import ARCH_IDS, RunConfig, get_config, \
-    get_reduced_config
+from repro_torch.configs import ARCH_IDS, PORT_ARCH_IDS, RunConfig, \
+    get_config, get_reduced_config
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params
 from repro_torch.models.model import cast_for_compute, compute_dtype
@@ -280,7 +280,8 @@ def _serve_elastic(args, cfg, params, metrics, tenants, kv_paging, device,
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
-    ap.add_argument("--arch", default="stablelm-3b", choices=ARCH_IDS)
+    ap.add_argument("--arch", default="stablelm-3b",
+                    choices=ARCH_IDS + PORT_ARCH_IDS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)

@@ -34,6 +34,7 @@ from repro_torch.core.actshard import (
     tp_will_reduce,
 )
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import logits_scale
 
 _NEG_INF = -1e30
 f32 = torch.float32
@@ -98,6 +99,12 @@ def out_proj(p: dict, o: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------- blockwise causal core ----
 
+def softmax_scale(cfg: ModelConfig, Dh: int) -> float:
+    """The attention logits' scale: ``cfg.attention_multiplier``, or
+    ``Dh ** -0.5`` where the config sets none."""
+    return logits_scale(Dh, cfg.attention_multiplier)
+
+
 def _attend_block(q, k, v, q_pos, kv_pos, window, scale, kv_valid=None):
     """q: (B,qb,K,G,Dh)  k/v: (B,S,K,Dh)  -> (B,qb,K,G,Dh).
 
@@ -133,7 +140,7 @@ def causal_attention(q, k, v, cfg: ModelConfig, q_block: int = 512,
     B, S, H, Dh = q.shape
     K = k.shape[2]
     G = H // K
-    scale = Dh ** -0.5
+    scale = softmax_scale(cfg, Dh)
     window = cfg.sliding_window
     qg = q.reshape(B, S, K, G, Dh)
     kv_pos = torch.arange(S, device=q.device) if positions is None \
@@ -208,7 +215,8 @@ def attention_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
     if use_kernels:
-        o = kops.flash_attention(q, k, v, window=cfg.sliding_window)
+        o = kops.flash_attention(q, k, v, window=cfg.sliding_window,
+                                 scale=softmax_scale(cfg, q.shape[-1]))
     else:
         o = causal_attention(q, k, v, cfg, one_block=one_block)
     o = out_proj(p, o)
@@ -280,7 +288,8 @@ def attention_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
         o = causal_attention(q, k, v, cfg, positions=positions,
                              kv_valid=valid)
     elif use_kernels:
-        o = kops.flash_attention(q, k, v, window=cfg.sliding_window)
+        o = kops.flash_attention(q, k, v, window=cfg.sliding_window,
+                                 scale=softmax_scale(cfg, q.shape[-1]))
     else:
         o = causal_attention(q, k, v, cfg)
     if cache_slots >= S:
@@ -340,7 +349,8 @@ def attention_decode(p: dict, x: torch.Tensor, cache: dict, pos,
 
     if use_kernels:
         o = kops.flash_decode(q, ck, cv, posv.to(torch.int32),
-                              window=cfg.sliding_window)
+                              window=cfg.sliding_window,
+                              scale=softmax_scale(cfg, q.shape[-1]))
         return out_proj(p, o), cache
 
     H, Dh = q.shape[2], q.shape[3]
@@ -355,7 +365,7 @@ def attention_decode(p: dict, x: torch.Tensor, cache: dict, pos,
     if cfg.sliding_window is not None:
         valid &= (posv[:, None] - slot_pos) < cfg.sliding_window
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg,
-                          ck.to(q.dtype)).to(f32) * (Dh ** -0.5)
+                          ck.to(q.dtype)).to(f32) * softmax_scale(cfg, Dh)
     logits = torch.where(valid[:, None, None, None, :], logits, _NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     o = torch.einsum("bkgqs,bskd->bqkgd", probs,
@@ -400,7 +410,7 @@ def _decode_seq_sharded(q, k, v, cache: dict, posv, cfg: ModelConfig,
     if cfg.sliding_window is not None:
         valid &= (posv[:, None] - slot_pos) < cfg.sliding_window
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg,
-                          ck.to(q.dtype)).to(f32) * (Dh ** -0.5)
+                          ck.to(q.dtype)).to(f32) * softmax_scale(cfg, Dh)
     logits = torch.where(valid[:, None, None, None, :], logits, _NEG_INF)
     m = logits.amax(dim=-1, keepdim=True)
     dist.all_reduce(m, op=dist.ReduceOp.MAX, group=plan.group)
@@ -451,7 +461,8 @@ def attention_decode_paged(p: dict, x: torch.Tensor, cache: dict, pos,
 
     if use_kernels:
         o = kops.flash_decode_paged(q, ck, cv, page_table,
-                                    posv.to(torch.int32))
+                                    posv.to(torch.int32),
+                                    scale=softmax_scale(cfg, q.shape[-1]))
         return out_proj(p, o), cache
 
     H, Dh = q.shape[2], q.shape[3]
@@ -464,7 +475,7 @@ def attention_decode_paged(p: dict, x: torch.Tensor, cache: dict, pos,
     valid = torch.arange(n_pages * ps, device=x.device)[None, :] \
         <= posv[:, None]
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg,
-                          kd.to(q.dtype)).to(f32) * (Dh ** -0.5)
+                          kd.to(q.dtype)).to(f32) * softmax_scale(cfg, Dh)
     logits = torch.where(valid[:, None, None, None, :], logits, _NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     o = torch.einsum("bkgqs,bskd->bqkgd", probs,
@@ -510,7 +521,7 @@ def attention_prefill_paged(p: dict, x: torch.Tensor, cache: dict,
     G = H // K
     ps = cache["k"].shape[1]
     L = page_table.shape[1] * ps                     # logical prefix width
-    scale = Dh ** -0.5
+    scale = softmax_scale(cfg, Dh)
     idx = page_table.to(torch.int64)
     kd = cache["k"][idx].reshape(B, L, K, Dh).to(q.dtype)
     vd = cache["v"][idx].reshape(B, L, K, Dh).to(q.dtype)
@@ -583,7 +594,7 @@ def attention_verify(p: dict, x: torch.Tensor, cache: dict, pos0,
     valid = torch.arange(L, device=x.device)[None, None, :] \
         <= posm[:, :, None]                                   # (B,S,L)
     logits = torch.einsum("bqkgd,bskd->bkgqs", qg,
-                          kd.to(q.dtype)).to(f32) * (Dh ** -0.5)
+                          kd.to(q.dtype)).to(f32) * softmax_scale(cfg, Dh)
     logits = torch.where(valid[:, None, None], logits, _NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     o = torch.einsum("bkgqs,bskd->bqkgd", probs,

@@ -100,7 +100,24 @@ def _groups(params) -> int:
 
 # ------------------------------------------------------------ embeddings ----
 
+def times(t, m: float):
+    """``t * m``; ``t`` itself where ``m`` is 1, so that a config without
+    muP scalars runs the same operations as before they existed."""
+    return t if m == 1.0 else t * m
+
+
+def residual(x, h, cfg: ModelConfig):
+    """A sublayer's residual add: ``x + h * cfg.residual_multiplier``."""
+    return x + times(h, cfg.residual_multiplier)
+
+
 def embed_tokens(params, tokens, cfg: ModelConfig):
+    """The tokens' rows of the embedding, times
+    ``cfg.embedding_multiplier``."""
+    return times(_lookup(params, tokens, cfg), cfg.embedding_multiplier)
+
+
+def _lookup(params, tokens, cfg: ModelConfig):
     tab = params["embed"]["tok"].to(compute_dtype(cfg))
     plan = tp_train()
     if plan is None or not plan.vocab:
@@ -146,6 +163,14 @@ def hidden_len(batch: dict) -> int:
 
 
 def unembed(params, h, cfg: ModelConfig):
+    """Logits of the final hidden states, divided by
+    ``cfg.logits_scaling``."""
+    logits = _head(params, h, cfg)
+    ls = cfg.logits_scaling
+    return logits if ls == 1.0 else logits / ls
+
+
+def _head(params, h, cfg: ModelConfig):
     w = params["embed"]["tok"] if cfg.tie_embeddings else params["lm_head"]["w"]
     plan = tp_train()
     if plan is None or not (plan.vocab or plan.seq):
@@ -178,7 +203,7 @@ def sublayer_train(p, x, mixer: str, ffn: str, cfg: ModelConfig,
                               one_block=run.seq_parallel)
     else:
         h = SSM.ssm_train(p["ssm"], h, cfg, use_kernels=run.use_kernels)
-    x = x + h
+    x = residual(x, h, cfg)
     if ffn != "none":
         h = rmsnorm(x, p["norm2"]["scale"], cfg.norm_eps)
         if ffn == "moe":
@@ -195,7 +220,7 @@ def sublayer_train(p, x, mixer: str, ffn: str, cfg: ModelConfig,
                 # replicated: a position-wise block runs on the rows as
                 # they are (this rank's, with the sequence sharded)
                 h = mlp_apply(p["mlp"], h, cfg.mlp_type)
-        x = x + h
+        x = residual(x, h, cfg)
     return x, aux
 
 
@@ -303,8 +328,8 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None,
     """Decode cache: one entry per sublayer slot, stacked over groups —
     ``{"k", "v"}`` for an attention sublayer, ``{"state", "conv"}`` for
     an SSM one.  ``paging`` makes every attention sublayer a shared page
-    pool; it is full-attention only (SSM state is not line-addressable),
-    so callers gate on ``cfg.ssm is None``.  ``kv_heads`` sizes the
+    pool; an SSM sublayer's state is not line-addressable and keeps its
+    per-slot rows (``batch`` of them) beside the pool.  ``kv_heads`` sizes the
     attention leaves' kv-head axis (a tensor-parallel shard's ``K/tp``;
     default ``cfg.num_kv_heads``).  ``abstract`` puts the cache on the
     ``meta`` device (the dry run's; ``device`` is then ignored)."""
@@ -319,7 +344,6 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None,
                                           device=device, paging=paging,
                                           kv_heads=kv_heads))
         else:
-            assert paging is None, "paged KV cache is attention-only"
             layers.append(SSM.init_ssm_cache(cfg, batch, n_groups,
                                              device=device))
     return {"layers": layers}
@@ -372,7 +396,7 @@ def _ffn(p, x, ffn: str, cfg: ModelConfig):
         hh, _ = MOE.moe_apply(p["moe"], hh, cfg)
     else:
         hh = mlp_apply(p["mlp"], hh, cfg.mlp_type)
-    return x + hh
+    return residual(x, hh, cfg)
 
 
 def _stack_caches(per_group: list) -> list:
@@ -392,14 +416,17 @@ def _attn_only(cfg: ModelConfig) -> bool:
 #: of host time between the decode step's launches on an H100), from one
 #: clock reading a boundary, made into spans once the loop is done
 #: (``SpanScope.layers``).
-_MIXER_SPAN = {"attn": "attention"}
+_MIXER_SPAN = {"attn": "attention", "ssm": "ssm"}
+#: the same in a prefill, where an SSM sublayer runs the chunked scan
+_PREFILL_MIXER_SPAN = {"attn": "attention", "ssm": "ssm_prefill"}
 
 
-def _layer_names(sched, sublayers: int) -> list:
+def _layer_names(sched, sublayers: int, mixer_span=None) -> list:
     """The span names of ``sublayers`` sublayers run in the schedule's
-    order: the mixer's, then ``ffn``."""
-    period = [n for mixer, _ in sched
-              for n in (_MIXER_SPAN.get(mixer, mixer), "ffn")]
+    order: the mixer's (``mixer_span``, default :data:`_MIXER_SPAN`),
+    then ``ffn``."""
+    names = _MIXER_SPAN if mixer_span is None else mixer_span
+    period = [n for mixer, _ in sched for n in (names[mixer], "ffn")]
     return period * (sublayers // len(sched))
 
 
@@ -470,12 +497,13 @@ def prefill(params, batch: dict, cfg: ModelConfig, run: RunConfig,
                                         valid=valid, conv_end=conv_end)
             if marks is not None:
                 marks.append(sc.tracer.clock())
-            h = _ffn(p, h + hh, ffn, cfg)
+            h = _ffn(p, residual(h, hh, cfg), ffn, cfg)
             caches.append(c)
         per_group.append(caches)
     if marks is not None:
         marks.append(sc.tracer.clock())
-        sc.layers(_layer_names(sched, len(marks) // 2), marks, "model")
+        sc.layers(_layer_names(sched, len(marks) // 2, _PREFILL_MIXER_SPAN),
+                  marks, "model")
     h = rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)
     h_last = h[:, -1:] if last_pos is None else h[:, last_pos:last_pos + 1]
     logits = unembed(params, h_last, cfg)
@@ -523,7 +551,7 @@ def prefill_suffix(params, batch: dict, cache, page_table, start,
             hh = rmsnorm(h, p["norm1"]["scale"], cfg.norm_eps)
             hh, kv = A.attention_prefill_paged(p["attn"], hh, c, page_table,
                                                start, cfg)
-            h = _ffn(p, h + hh, ffn, cfg)
+            h = _ffn(p, residual(h, hh, cfg), ffn, cfg)
             caches.append(kv)
         per_group.append(caches)
     h = rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)
@@ -575,7 +603,8 @@ def decode_step(params, cache, token, pos, cfg: ModelConfig, run: RunConfig,
                 marks.append(sc.tracer.clock())
             hh = rmsnorm(h, p["norm1"]["scale"], cfg.norm_eps)
             if mixer != "attn":
-                hh, _ = SSM.ssm_decode(p["ssm"], hh, c, cfg)
+                hh, _ = SSM.ssm_decode(p["ssm"], hh, c, cfg,
+                                       use_kernels=run.use_kernels)
             elif page_table is not None:
                 hh, _ = A.attention_decode_paged(
                     p["attn"], hh, c, pos, page_table, cfg,
@@ -585,7 +614,7 @@ def decode_step(params, cache, token, pos, cfg: ModelConfig, run: RunConfig,
                                            use_kernels=run.use_kernels)
             if marks is not None:
                 marks.append(sc.tracer.clock())
-            h = _ffn(p, h + hh, ffn, cfg)
+            h = _ffn(p, residual(h, hh, cfg), ffn, cfg)
     if marks is not None:
         marks.append(sc.tracer.clock())
         sc.layers(_layer_names(sched, len(marks) // 2), marks, "model")
@@ -626,7 +655,7 @@ def verify_tokens(params, cache, tokens, pos0, pages, offs, page_table,
             hh = rmsnorm(h, p["norm1"]["scale"], cfg.norm_eps)
             hh, _ = A.attention_verify(p["attn"], hh, c, pos0, pages, offs,
                                        page_table, cfg)
-            h = _ffn(p, h + hh, ffn, cfg)
+            h = _ffn(p, residual(h, hh, cfg), ffn, cfg)
     h = rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)
     return unembed(params, h, cfg), cache
 

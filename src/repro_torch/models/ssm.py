@@ -7,9 +7,11 @@ length Q: within a chunk the dual "attention-like" quadratic form is used,
 across chunks a linear recurrence carries the (H, P, N) state.  This plain
 PyTorch implementation is the reference path; in training ``use_kernels``
 routes the scan through ``kernels.ops.ssd_scan`` (the CUDA kernel on the
-card).  Serving reaches no kernel, as in the JAX package: prefill runs the
-plain ``ssd_chunked`` (the cache needs its final state, which the kernel
-does not return) and decode is one recurrence step.
+card).  Serving prefill reaches no kernel, as in the JAX package: it runs
+the plain ``ssd_chunked`` (the cache needs its final state, which the
+scan kernel does not return).  Decode is one recurrence step, which
+``use_kernels`` runs through the port's decode-step kernel
+(``kernels.ops.ssd_decode_step``; the JAX package has none).
 
 Under training tensor parallelism (``core.actshard.tp_train_scope``) a
 rank whose plan shards the SSD heads runs its ``H/m`` heads: its columns
@@ -276,10 +278,14 @@ def ssm_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
                  "conv": conv_state.to(torch_dtype(cfg.dtype))}
 
 
-def ssm_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig):
+def ssm_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
+               use_kernels: bool = False):
     """One-token recurrent decode.  x: (B,1,d); cache: this group's
     ``state`` (B,H,P,N) and ``conv`` (B,W-1,C), updated **in place**
-    (``copy_``) as the attention decode writes its KV line.  Under a
+    as the attention decode writes its KV line.  ``use_kernels`` runs
+    the recurrence's step through ``kernels.ops.ssd_decode_step`` (the
+    CUDA kernel on the card, which reads and writes the state once);
+    otherwise its plain version.  Under a
     training TP plan (the serve step's) the block runs on this rank's
     heads, as :func:`ssm_prefill` does: ``state`` holds them, ``conv``
     every channel (the step's ``xin`` columns all-gathered).  Returns
@@ -304,18 +310,14 @@ def ssm_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig):
     xin, Bm, Cm = _post_conv_split(y_conv, cfg, di)       # (B,*)
     dt = F.softplus(dt_raw[:, 0].to(f32) + p["dt_bias"].to(f32))   # (B,H)
     A = -torch.exp(p["A_log"].to(f32))
-    a = torch.exp(dt * A)                                 # (B,H)
-    xh = xin.reshape(B, H, P).to(f32)
-    dBx = torch.einsum("bh,bhp,bn->bhpn", dt, xh, Bm.to(f32))
-    state = cache["state"] * a[:, :, None, None] + dBx    # (B,H,P,N)
-    y = torch.einsum("bhpn,bn->bhp", state, Cm.to(f32))
-    y = y + xh * p["D"].to(f32)[None, :, None]
+    step = kops.ssd_decode_step if use_kernels else kref.ssd_decode_step_ref
+    y = step(cache["state"], xin.reshape(B, H, P), dt, A,
+             p["D"].to(f32), Bm, Cm)                      # (B,H,P)
     y = y.reshape(B, 1, H * P).to(x.dtype)
     y = _rmsnorm_gated(y, z, p["norm_scale"], cfg.norm_eps,
                        width=ssm.d_inner(cfg.d_model) if sharded else None)
     out = y @ p["wo"].to(y.dtype)
     if points:
         out = tp_exit(out, partial=sharded)
-    cache["state"].copy_(state)
     cache["conv"].copy_(win[:, 1:])
     return out, cache

@@ -82,6 +82,10 @@ METRIC_SERVE_DECODE_GRAPH_REPLAYS = "serve_decode_graph_replays"
 #: token steps run eagerly (a capture's first step among them)
 METRIC_SERVE_DECODE_EAGER_STEPS = "serve_decode_eager_token_steps"
 
+# SSM and hybrid serving (per-slot recurrent state beside the KV cache).
+#: bytes of SSM state and conv windows the engine holds, a gauge
+METRIC_SERVE_SSM_STATE_BYTES = "serve_ssm_state_bytes"
+
 # Elastic multi-replica serving (prefix-affinity router + autoscaler).
 #: per-replica queue depth (slot holders + queued), a gauge {replica=}
 METRIC_SERVE_REPLICA_LOAD = "serve_replica_load"

@@ -29,7 +29,11 @@ chunk's worth before the call), and frees everything on finish or
 eviction.  Admission is page-budget aware, GrpTRES can cap ``kv_pages``
 per tenant, and the ledger bills page residency.  Pool exhaustion at
 growth evicts one scavenger victim; if nothing is evictable the starved
-slot requeues with its output kept.
+slot requeues with its output kept.  In a hybrid (SSM and attention
+sublayers) only the attention sublayers page; each SSM sublayer keeps its
+state and conv window in per-slot rows, which an admission overwrites
+whole with the prefill's (a prefill's state starts from zero, so nothing
+of the slot's last request reaches the new one).
 
 **Prefix cache** (``prefix_cache=True``, needs paging): a radix index
 (``serving.prefix``) maps complete prompt pages to physical pages.  An
@@ -107,6 +111,7 @@ from repro_torch.monitoring.metrics import (
     METRIC_SERVE_KV_PAGES_IN_USE, METRIC_SERVE_PREEMPTIONS,
     METRIC_SERVE_PREFIX_EVICTIONS, METRIC_SERVE_PREFIX_HITS,
     METRIC_SERVE_PREFIX_MISSES, METRIC_SERVE_PREFIX_REUSED_TOKENS,
+    METRIC_SERVE_SSM_STATE_BYTES,
     METRIC_SERVE_TENANT_ADMITTED, METRIC_SERVE_TENANT_TOKENS,
     METRIC_SPEC_ACCEPT_RATE, METRIC_SPEC_ACCEPTED, METRIC_SPEC_PROPOSED,
 )
@@ -285,6 +290,11 @@ class DecodeEngine:
                     "prefix_cache=True needs the paged KV cache: pass "
                     "kv_page_size > 0 (CLI: --prefix-cache implies "
                     "--kv-paging)")
+            if cfg.ssm is not None:
+                raise ValueError(
+                    f"prefix_cache=True: cfg.ssm={cfg.ssm!r} — a shared "
+                    "prefix would need the SSM state at its last page, "
+                    "which the engine does not keep")
             self.prefix = PrefixCache(self.allocator, self.paging.page_size)
             # live holders per physical page, for amortized residency
             # billing (a page shared by h requests bills 1/h to each)
@@ -301,6 +311,15 @@ class DecodeEngine:
             paging=self.paging,
             kv_heads=(cfg.num_kv_heads // self.tp.tp if self.tp.shard_attn
                       else None))
+        #: the cache's SSM sublayers (per-slot ``state`` and ``conv``
+        #: rows, in the dense and the paged layout alike)
+        self._ssm_layers = [c for c in self.cache["layers"] if "state" in c]
+        if self._ssm_layers:
+            self.metrics.gauge(
+                METRIC_SERVE_SSM_STATE_BYTES,
+                "SSM state and conv bytes held").set(sum(
+                    t.numel() * t.element_size()
+                    for c in self._ssm_layers for t in c.values()))
         self.slots: list[Optional[Request]] = [None] * num_slots
         self.pos = np.zeros(num_slots, np.int64)       # next position per slot
         self.last_tok = np.zeros(num_slots, np.int32)
@@ -339,6 +358,11 @@ class DecodeEngine:
                     "decode lanes and prefill chunks together, which needs "
                     "fused=True (the per-token host loop has no budgeted "
                     "form)")
+            if cfg.ssm is not None:
+                raise ValueError(
+                    f"max_batch_tokens: cfg.ssm={cfg.ssm!r} — a prefill "
+                    "chunk reads the prompt's earlier lines from the pool, "
+                    "and an SSM sublayer has no lines to read")
             self.max_batch_tokens = int(max_batch_tokens)
             assert self.max_batch_tokens >= 1, max_batch_tokens
             b, buckets = 1, []
@@ -369,6 +393,11 @@ class DecodeEngine:
                 raise ValueError(
                     "speculate: verification is one batched call over the "
                     "fused decode lanes, which needs fused=True")
+            if cfg.ssm is not None:
+                raise ValueError(
+                    f"speculate: cfg.ssm={cfg.ssm!r} — a rejected draft "
+                    "would have to roll the SSM state back, which the "
+                    "engine does not keep")
             if spec_source == "model":
                 dcfg = draft_model if draft_model is not None \
                     else draft_config(cfg)
@@ -390,25 +419,28 @@ class DecodeEngine:
 
     def _resolve_paging(self, kv_page_size: int,
                         kv_pages: Optional[int]) -> Optional[PagedKVConfig]:
-        """Paged layout, or None (dense default).  Paging needs full
-        attention (no SSM state to page) and no sliding-window ring.
+        """Paged layout, or None (dense default).  Paging needs attention
+        sublayers and no sliding-window ring; in a hybrid the attention
+        sublayers' lines live in the pool and each SSM sublayer's state
+        and conv window in per-slot tensors (``models.model.init_cache``).
         ``kv_pages`` overrides the pool size; the default matches the
         dense budget (num_slots * cache_len lines) plus the null page."""
         if not kv_page_size:
             return None
         # name the offending config field: "full-attention only" alone
         # sends operators hunting through the whole ModelConfig
-        if self.cfg.ssm is not None:
+        if self.cfg.attn_every == 0:
             raise ValueError(
-                "kv_page_size: paged KV cache needs a full-attention "
-                f"config, but cfg.ssm={self.cfg.ssm!r} — SSM recurrent "
-                "state is not line-addressable, so it cannot be paged")
-        if self.cfg.attn_every != 1:
+                "kv_page_size: paged KV cache needs attention sublayers, "
+                f"but cfg.ssm={self.cfg.ssm!r} with attn_every=0 has none "
+                "— SSM recurrent state is not line-addressable, so it "
+                "cannot be paged")
+        if self.cfg.attn_every != 1 and self.cfg.ssm is None:
             raise ValueError(
-                "kv_page_size: paged KV cache needs a full-attention "
-                f"config, but cfg.attn_every={self.cfg.attn_every} "
-                "interleaves non-attention sublayers whose state has no "
-                "page layout")
+                "kv_page_size: paged KV cache needs every sublayer's "
+                f"state to have a layout, but cfg.attn_every="
+                f"{self.cfg.attn_every} interleaves non-attention "
+                "sublayers and cfg.ssm is None")
         if self.cfg.sliding_window is not None:
             raise ValueError(
                 "kv_page_size: paged KV cache does not support "
@@ -841,7 +873,7 @@ class DecodeEngine:
         if self.paging is not None:
             # the prefilled lines go into the private pages only (the
             # suffix on a prefix hit): shared pages are never written
-            self._insert_pages(cache1, priv)
+            self._insert_pages(cache1, priv, slot)
             pages = shared + priv
             self._ptab.clear(slot)
             self._ptab.set_range(slot, 0, pages)
@@ -929,16 +961,21 @@ class DecodeEngine:
                 n = leaf.shape[2]
                 dst[name][:, slot, :n].copy_(leaf[:, 0])
 
-    def _insert_pages(self, cache1, pages: list):
+    def _insert_pages(self, cache1, pages: list, slot: int):
         """Write a prefilled slice's lines into ``pages`` (whole pages from
         the slice's first line), in place.  Only the given pages are
-        written: the bucketed pad lines past them belong to no page."""
+        written: the bucketed pad lines past them belong to no page.  An
+        SSM sublayer's ``state`` and ``conv`` go into the slot's rows."""
         ps = self.paging.page_size
         n = len(pages)
-        if n == 0:
-            return
         idx = torch.tensor(pages, dtype=torch.int64, device=self.device)
         for dst, src in zip(self.cache["layers"], cache1["layers"]):
+            if "state" in src:
+                for name, leaf in src.items():
+                    dst[name][:, slot].copy_(leaf[:, 0])
+                continue
+            if n == 0:
+                continue
             for name in ("k", "v"):
                 lines = src[name][:, 0]                  # (G, L, K, Dh)
                 g, length = lines.shape[:2]

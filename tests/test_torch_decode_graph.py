@@ -248,7 +248,8 @@ def test_replays_add_their_captures_launches():
     assert after["flash_decode_paged"] - before["flash_decode_paged"] == 10
     assert {k: after[k] - before[k] for k in after
             if k != "flash_decode_paged"} == dict.fromkeys(
-        ("flash_attention", "flash_decode", "ssd_scan"), 0)
+        ("flash_attention", "flash_decode", "ssd_scan", "ssd_decode_step"),
+        0)
     ops.add_launch_counts(step, -5)
 
 

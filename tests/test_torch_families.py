@@ -94,11 +94,22 @@ def _hidden(cfg, S, seed=0):
 # ---------------------------------------------------------------- configs ----
 
 def test_ten_architectures_match_jax_configs():
+    """Every field of the JAX ``ModelConfig`` as the JAX package sets it;
+    the fields only the port has (the attention layer's offset in its
+    period, the muP scalars) at their defaults, which change nothing."""
     assert ARCH_IDS == JAX_ARCH_IDS
+    shared = {f.name for f in dataclasses.fields(jax_config(ARCH_IDS[0]))}
+    extra = [f for f in dataclasses.fields(get_config(ARCH_IDS[0]))
+             if f.name not in shared]
+    assert sorted(f.name for f in extra) == sorted(
+        ("attn_offset", "embedding_multiplier", "residual_multiplier",
+         "attention_multiplier", "logits_scaling"))
     for arch in ARCH_IDS:
         for ours, theirs in ((get_config(arch), jax_config(arch)),
                              (get_reduced_config(arch), jax_reduced(arch))):
-            assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+            mine = dataclasses.asdict(ours)
+            assert {k: mine[k] for k in shared} == dataclasses.asdict(theirs)
+            assert all(getattr(ours, f.name) == f.default for f in extra)
             assert ours.param_count() == theirs.param_count()
 
 
@@ -303,6 +314,7 @@ def test_front_pad_offsets_nonzero(mamba, monkeypatch):
 
 def test_engine_guards_for_ssm_configs(mamba, jamba):
     _, tcfg, _, tparams = mamba
+    # attention-free: no sublayer to page
     with pytest.raises(ValueError, match="cfg.ssm"):
         DecodeEngine(tcfg, tparams, num_slots=2, cache_len=64,
                      kv_page_size=16, device="cpu")

@@ -183,9 +183,9 @@ def _plain_kernels(monkeypatch):
         calls["ssd"] += 1
         return tref.ssd_scan_ref(x, dt, a, Bm, Cm, chunk)
 
-    def fa(q, k, v, window=None):
+    def fa(q, k, v, window=None, **kw):
         calls["fa"] += 1
-        return tref.attention_ref(q, k, v, window=window)
+        return tref.attention_ref(q, k, v, window=window, **kw)
 
     monkeypatch.setattr(tops._ssd, "ssd_scan_bshp", ssd)
     monkeypatch.setattr(tops._fa, "flash_attention_bshd", fa)

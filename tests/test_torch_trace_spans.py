@@ -138,8 +138,8 @@ def test_train_step_spans(tiny, remat, monkeypatch):
     cfg, params = tiny
     monkeypatch.setattr(ops, "_on_card", lambda t: True)
     monkeypatch.setattr(ops._fa, "flash_attention_bshd",
-                        lambda q, k, v, window=None: ref.attention_ref(
-                            q, k, v, window=window))
+                        lambda q, k, v, window=None, **kw:
+                        ref.attention_ref(q, k, v, window=window, **kw))
     tr = Tracer(clock=_counting_clock())
     opt = OptimizerConfig()
     step = make_train_step(cfg, RunConfig(use_kernels=True, remat=remat),

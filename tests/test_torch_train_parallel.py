@@ -466,7 +466,8 @@ def test_chip_smoke_resume_phase_on_cpu(capsys):
     text = capsys.readouterr().out
     assert text.count("digests equal the saving run's at step 1") == 4
     assert set(out["launches"]) == {"flash_attention", "flash_decode",
-                                    "flash_decode_paged", "ssd_scan"}
+                                    "flash_decode_paged", "ssd_scan",
+                                    "ssd_decode_step"}
 
 
 def test_seq_parallel_one_rank_matches_jax():
