@@ -30,8 +30,13 @@ Needs one CUDA card and the CUDA toolkit.  Phases, each fatal on failure:
    library call (a yardstick the port never calls) with CUDA events,
    the L2 cache flushed before every launch and the timed launches
    queued behind a sleep kernel, so that each reading is device time.
-   Then the gradients of the two kernels that training differentiates
-   (``ops.flash_attention``, ``ops.ssd_scan``) against plain autograd.
+   The attention backward kernel at the train cells' shapes and ragged
+   ones against autograd through the plain version in f32, two calls
+   bit-identical, timed beside its bound, the plain recompute and SDPA's
+   backward.  Then the gradients of the two kernels that training
+   differentiates (``ops.flash_attention`` in f32 and bf16,
+   ``ops.ssd_scan``) against plain autograd; ``--kernels-only`` stops
+   here.
 4. serve   — full-width stablelm-3b (random weights from a seed, bf16
    compute) through ``DecodeEngine``: a warm-up run, then the dense cache,
    then pages of 16 lines; fail if a kernel of the path never launched or
@@ -855,10 +860,109 @@ def granite_attention_checks(cfg, lanes: int, gen, ps: int = 16,
           f"q (1,{prompt},{H},{Dh}) {K} kv heads scale {scale}")
 
 
+BWD_EXCESS_TOL = 1e-4
+
+
+def bwd_excess(got, want) -> float:
+    """How far bf16 gradients stray past one bf16 rounding of the f32
+    ones, over the largest: max(|got - want| - 2^-8 |want|) / max(1,
+    max |want|); NaN anywhere reads NaN."""
+    w = want.float()
+    ex = ((got.float() - w).abs() - 2.0 ** -8 * w.abs()).max()
+    return float(ex) / max(1.0, float(w.abs().max()))
+
+
+def attention_bwd_phase() -> dict:
+    """The attention backward kernel (``kernels/attention_bwd.py``): dq,
+    dk and dv against autograd through ``ref.attention_ref`` in f32 on the
+    same bf16 values (within one bf16 rounding + ``BWD_EXCESS_TOL`` of the
+    largest: f32 sums in another order, P and dS in 16 bits), bit-identical
+    over two calls, at the train cells' shapes and ragged ones; then timed
+    at stablelm-3b.train's (4,1024,32,80) and one fsdp4 rank's
+    (4,2048,16,128) beside its bound, the plain recompute (what float32
+    still runs) and SDPA's backward (the yardstick; the port never calls
+    it)."""
+    from repro_torch.kernels import attention_bwd as ab
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    bf16 = torch.bfloat16
+
+    def plain(q, k, v, do, window=None, scale=None):
+        with torch.enable_grad():
+            ins = [t.detach().float().requires_grad_(True)
+                   for t in (q, k, v)]
+            out = ref.attention_ref(*ins, window=window, scale=scale)
+            return torch.autograd.grad(out, ins, do.float())
+
+    errs = []
+    for B, S, H, K, Dh, window, scale in (
+            (4, 1024, 32, 32, 80, None, None),      # stablelm-3b.train
+            (4, 2048, 16, 16, 128, None, None),     # an fsdp4 rank
+            (1, 300, 32, 8, 64, None, 1 / 64),      # granite's GQA 4:1
+            (2, 200, 8, 2, 72, 64, None),           # ragged Dh, window
+            (1, 1, 4, 4, 80, None, None)):
+        q, k, v = (rand(gen, (B, S, n, Dh), bf16) for n in (H, K, K))
+        do = rand(gen, q.shape, bf16)
+        got = ab.attention_bwd_bshd(q, k, v, do, window=window, scale=scale)
+        again = ab.attention_bwd_bshd(q, k, v, do, window=window,
+                                      scale=scale)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        want = plain(q, k, v, do, window, scale)
+        ex = [bwd_excess(g, w) for g, w in zip(got, want)]
+        ok = same and all(math.isfinite(e) and e <= BWD_EXCESS_TOL
+                          for e in ex)
+        log(f"  attention_bwd q({B},{S},{H},{Dh}) kv {K} w={window} "
+            f"scale={scale}: excess over one bf16 rounding dq {ex[0]:.2e} "
+            f"dk {ex[1]:.2e} dv {ex[2]:.2e} (tol {BWD_EXCESS_TOL:g}); two "
+            f"calls {'bit-identical' if same else 'DIFFER'} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"attention_bwd at q({B},{S},{H},{Dh}): "
+                                 f"excess {ex}, bit-identical {same}")
+        errs.append(max(float((g.float() - w).abs().max())
+                        for g, w in zip(got, want)))
+        del got, again, want
+
+    out = {}
+    for B, S, H, Dh, what in ((4, 1024, 32, 80, "stablelm-3b.train"),
+                              (4, 2048, 16, 128, "an fsdp4 rank")):
+        q, k, v, do = (rand(gen, (B, S, H, Dh), bf16) for _ in range(4))
+        ms = time_ms(lambda: ab.attention_bwd_bshd(q, k, v, do))
+        plain_ms = time_ms(lambda: plain(q, k, v, do), iters=5)
+        ins = [t.transpose(1, 2).detach().requires_grad_(True)
+               for t in (q, k, v)]
+        o = F.scaled_dot_product_attention(*ins, is_causal=True)
+        dot = do.transpose(1, 2)
+        lib = time_ms(lambda: torch.autograd.grad(o, ins, dot,
+                                                  retain_graph=True))
+        del o, ins
+        # q, dO, dq and k, v, dk, dv once (K = H); five products a pair
+        pairs = S * (S + 1) // 2
+        b, by = bound_ms(2 * B * S * Dh * 7 * H, 10 * Dh * pairs * H * B,
+                         bf16)
+        log(f"  attention_bwd at {what}'s q/k/v/dO ({B},{S},{H},{Dh}): "
+            f"{ms:.4f} ms ({100 * b / ms:.1f}% of its bound {b:.4f} ms, "
+            f"{by}), plain recompute {plain_ms:.4f} ms, SDPA backward "
+            f"{lib:.4f} ms")
+        if not out:
+            out["attention_bwd"] = dict(
+                route="cuda",
+                source="src/repro_torch/kernels/csrc/attention_bwd.cu",
+                replaces="none: the port's own (the TPU kernel is "
+                "forward-only)",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=b, bound_by=by, library_ms=lib,
+                shape=f"q/k/v/dO ({B},{S},{H},{Dh}) bf16 causal")
+    return out
+
+
 def grad_phase():
     """Gradients through the two kernels training differentiates: the
-    autograd functions of ``kernels.ops`` (kernel forward, plain recompute
-    in the backward) against plain autograd, f32, small shapes."""
+    autograd functions of ``kernels.ops`` against plain autograd at small
+    shapes; f32 (kernel forward, plain recompute in the backward) and,
+    for attention, bf16 (the backward kernel: within one bf16 rounding of
+    the f32 gradients + ``BWD_EXCESS_TOL`` of the largest)."""
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
@@ -891,6 +995,25 @@ def grad_phase():
             check("flash_attn grad", g, r, f32,
                   f"d{name} at q(1,96,8,64) kv 2 heads w={window}",
                   relative=True)
+        # the same values in both: the bf16 inputs, and the weights as
+        # the bf16 output's gradient rounds them
+        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+        wb = w.to(torch.bfloat16).float()
+        got = grads(lambda *t: ops.flash_attention(*t, window=window),
+                    (qb, kb, vb), wb)
+        want = grads(lambda *t: ref.attention_ref(*t, window=window),
+                     (qb.float(), kb.float(), vb.float()), wb)
+        for name, g, r in zip("qkv", got, want):
+            ex = bwd_excess(g, r)
+            ok = g.dtype == torch.bfloat16 and math.isfinite(ex) \
+                and ex <= BWD_EXCESS_TOL
+            log(f"  {'flash_attn grad':<19} d{name} at q(1,96,8,64) kv 2 "
+                f"heads w={window} bf16 (the backward kernel): excess "
+                f"{ex:.3e} (tol {BWD_EXCESS_TOL:g}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash_attn grad d{name} bf16: "
+                                     f"excess {ex}")
 
 
 # -------------------------------------------------------------- serving ----
@@ -4420,15 +4543,18 @@ def run_examples(at, hosts, cards) -> list:
 def main_path_launches(serve_runs, train, clus, par_runs,
                        resume) -> dict:
     """Each kernel's launches summed over the main path: the serve runs'
-    (every kernel but the scan, which serving never runs), the kept
-    train steps' scan, the cluster phase's jobs, the train-parallel runs
-    and the resume phase's steps."""
+    (every kernel but the scan and the attention backward, which serving
+    never runs), the kept train steps' scan and attention backward, the
+    cluster phase's jobs, the train-parallel runs and the resume phase's
+    steps."""
     from repro_torch.kernels import ops
 
     names = list(ops.launch_counts())
+    trained = ("ssd_scan", "attention_bwd")
     launches = {name: sum(r["launches"][name] for r in serve_runs)
-                for name in names if name != "ssd_scan"}
-    launches["ssd_scan"] = train["launches"]["ssd_scan"]
+                for name in names if name not in trained}
+    for name in trained:
+        launches[name] = train["launches"].get(name, 0)
     for name in names:
         launches[name] += clus["launches"][name]
         launches[name] += sum(r["launches"][name] for r in par_runs)
@@ -4476,11 +4602,12 @@ def _phases(opts, smi, cfg, tcfg, targs, shape, at, t_start,
     # the decode step at granite-4.0-h-micro's serving shape (384 lanes)
     from repro_torch.configs import get_config as config_of
     kernels.update(ssd_decode_phase(config_of("granite-4.0-h-micro"), 384))
+    kernels.update(attention_bwd_phase())
+    grad_phase()
     if opts.kernels_only:
         log(f"kernels only: stopped after the kernels' checks and times "
             f"({time.perf_counter() - t_start:.1f} s)")
         return 0
-    grad_phase()
 
     log(f"[4/17] {at()}: serve: full-width {cfg.name} ({cfg.num_layers} "
         f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads x "

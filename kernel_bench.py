@@ -94,6 +94,23 @@ def cases(fa, fd, ssd, gen):
         out.append(("ssd_scan", f"x ({B},2048,48,64) N 128 Q 256 strided",
                     lambda x=x, dt=dt, a=a, Bm=Bm, Cm=Cm: ssd.ssd_scan_bshp(
                         x, dt, a, Bm, Cm, 256)))
+    try:        # a tree older than the attention backward has none
+        from repro_torch.kernels import attention_bwd as ab
+    except ImportError:
+        return out
+    # the train cells' shapes: stablelm-3b.train, one fsdp4 rank
+    for B, S, H, Dh in ((4, 1024, 32, 80), (4, 2048, 16, 128)):
+        q, k, v, do = (rand((B, S, H, Dh)) for _ in range(4))
+        shape = f"q/k/v/dO ({B},{S},{H},{Dh}) causal"
+        out.append(("attention_bwd", shape,
+                    lambda q=q, k=k, v=v, do=do: ab.attention_bwd_bshd(
+                        q, k, v, do)))
+        ins = [t.transpose(1, 2).detach().requires_grad_(True)
+               for t in (q, k, v)]
+        o = F.scaled_dot_product_attention(*ins, is_causal=True)
+        out.append(("sdpa_bwd", shape,
+                    lambda o=o, ins=ins, do=do.transpose(1, 2):
+                    torch.autograd.grad(o, ins, do, retain_graph=True)))
     return out
 
 
@@ -115,7 +132,7 @@ def main(argv=None) -> int:
                         "per token step")
     parser.add_argument("--only", default=None,
                         help="time only the cases of this kernel (e.g. "
-                        "ssd_scan)")
+                        "ssd_scan, attention_bwd)")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_bench: no CUDA device")

@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 #: build/kernels at the repository root (listed in .gitignore)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("flash_attention.cu", "flash_decode.cu", "ssd_scan.cu",
-           "ssd_decode.cu")
+           "ssd_decode.cu", "attention_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -51,6 +51,10 @@ SIGNATURES = {
     "ssd_decode": {
         "repro_ssd_decode_step": (
             [_c_ptr] * 8 + [_c_int] * 5 + [_c_i64] * 7 + [_c_ptr]),
+    },
+    "attention_bwd": {
+        "repro_attention_bwd": (
+            [_c_ptr] * 9 + [_c_int] * 6 + [_c_i64] * 21 + [_c_f32, _c_ptr]),
     },
 }
 
@@ -136,14 +140,20 @@ def check(err: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def check_aligned(what: str, name: str, t) -> None:
-    """Raise unless ``t``'s base pointer and the strides of its axes other
-    than the last (those of length > 1) are multiples of 16 bytes, as the
-    kernels' 16-byte copies need."""
+def aligned(t) -> bool:
+    """Are ``t``'s base pointer and the strides of its axes other than the
+    last (those of length > 1) multiples of 16 bytes, as the kernels'
+    16-byte copies need?"""
     size = t.element_size()
-    strides = [st * size for st, n in zip(t.stride()[:-1], t.shape[:-1])
-               if n > 1]
-    if t.data_ptr() % 16 or any(st % 16 for st in strides):
+    return t.data_ptr() % 16 == 0 and all(
+        st * size % 16 == 0
+        for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1)
+
+
+def check_aligned(what: str, name: str, t) -> None:
+    """Raise unless ``t`` is :func:`aligned`."""
+    if not aligned(t):
+        size = t.element_size()
         raise ValueError(
             f"{what}: {name} must be 16-byte aligned for the kernel's "
             f"16-byte loads: base pointer and the strides of every axis but "

@@ -11,10 +11,13 @@ hand-written kernel (which reads the model layout through strides, so no
 transpose is materialised); a CPU tensor runs the kernel's plain version.
 Nothing falls back: a kernel that fails to build or launch raises.
 
-The kernels are forward-only, as the TPU kernels were.  Training
-differentiates ``flash_attention`` and ``ssd_scan`` through an autograd
-function whose forward launches the kernel and whose backward recomputes
-the plain version under autograd and backpropagates through it.
+The TPU kernels were forward-only.  Training differentiates
+``flash_attention`` and ``ssd_scan`` through an autograd function whose
+forward launches the kernel.  Attention's backward routes by dtype: in
+bfloat16 it launches the port's own backward kernel
+(``attention_bwd.py``); in float32 it recomputes the plain version under
+autograd and backpropagates through it, as ``ssd_scan``'s backward does
+in both dtypes.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import contextlib
 
 import torch
 
+from repro_torch.kernels import attention_bwd as _fa_bwd
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import ref
@@ -54,7 +58,8 @@ def _recompute_grads(ctx, plain, grad_out, *static):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Kernel forward; backward through :func:`ref.attention_ref`."""
+    """Kernel forward; backward by the backward kernel in bfloat16, through
+    :func:`ref.attention_ref` in float32."""
 
     @staticmethod
     def forward(ctx, q, k, v, window, scale=None):
@@ -71,8 +76,17 @@ class _FlashAttention(torch.autograd.Function):
         sc = ctx.spans
         with (sc.span("attention_bwd", "kernel") if sc is not None
               else contextlib.nullcontext()):
-            grads = _recompute_grads(ctx, ref.attention_ref, grad_o,
-                                     ctx.window, ctx.scale)
+            if grad_o.dtype == torch.bfloat16:
+                q, k, v = ctx.saved_tensors
+                grads = tuple(
+                    g if n else None for g, n in zip(
+                        _fa_bwd.attention_bwd_bshd(
+                            q, k, v, grad_o, window=ctx.window,
+                            scale=ctx.scale),
+                        ctx.needs_input_grad))
+            else:
+                grads = _recompute_grads(ctx, ref.attention_ref, grad_o,
+                                         ctx.window, ctx.scale)
             return grads + (None,) * (len(ctx.needs_input_grad) - 3)
 
 
@@ -153,8 +167,11 @@ def ssd_decode_step(state, x, dt, A, D, Bm, Cm):
 
 
 def launch_counts() -> dict:
-    """Kernel launches since the last :func:`reset_launch_counts`."""
+    """Kernel launches since the last :func:`reset_launch_counts`
+    (``attention_bwd`` and ``ssd_scan``: wrapper calls, whatever number of
+    launches a call makes)."""
     return {"flash_attention": _fa.launches,
+            "attention_bwd": _fa_bwd.launches,
             "flash_decode": _fd.launches,
             "flash_decode_paged": _fd.paged_launches,
             "ssd_scan": _ssd.launches,
@@ -163,6 +180,7 @@ def launch_counts() -> dict:
 
 def reset_launch_counts():
     _fa.launches = 0
+    _fa_bwd.launches = 0
     _fd.launches = 0
     _fd.paged_launches = 0
     _ssd.launches = 0
@@ -174,6 +192,7 @@ def add_launch_counts(counts: dict, times: int = 1):
     the counters: a CUDA graph's replay launches what its capture counted,
     and the capture itself launches nothing (``times=-1``)."""
     _fa.launches += times * counts.get("flash_attention", 0)
+    _fa_bwd.launches += times * counts.get("attention_bwd", 0)
     _fd.launches += times * counts.get("flash_decode", 0)
     _fd.paged_launches += times * counts.get("flash_decode_paged", 0)
     _ssd.launches += times * counts.get("ssd_scan", 0)

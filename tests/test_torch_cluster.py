@@ -612,9 +612,9 @@ def test_chip_smoke_cluster_phase_on_cpu(smoke, capsys):
     text = capsys.readouterr().out
     assert "validation: PASSED" in text and "bit-identical" in text
     assert "PREEMPTED" in text and "last reason 'Requeued'" in text
-    assert set(out["launches"]) == {"flash_attention", "flash_decode",
-                                    "flash_decode_paged", "ssd_scan",
-                                    "ssd_decode_step"}
+    assert set(out["launches"]) == {"flash_attention", "attention_bwd",
+                                    "flash_decode", "flash_decode_paged",
+                                    "ssd_scan", "ssd_decode_step"}
 
 
 def test_chip_smoke_cluster_phase_fails_on_a_failed_job(smoke,

@@ -331,7 +331,8 @@ def test_step_spans_summarises_the_mixers():
 def test_chip_smoke_sums_every_kernels_launches():
     """``chip_smoke.py``'s summary sums each kernel's launches over the
     main path, every kernel of ``ops.launch_counts()`` among them: the
-    SSD decode step's from the serve runs, the scan's from training."""
+    SSD decode step's from the serve runs, the scan's and the attention
+    backward's from training."""
     import importlib
     import sys
     from pathlib import Path
@@ -342,11 +343,13 @@ def test_chip_smoke_sums_every_kernels_launches():
         return {"launches": {k: n.get(k, 0) for k in ops.launch_counts()}}
 
     serve = [run(flash_decode_paged=3, ssd_decode_step=36),
-             run(flash_attention=2, ssd_decode_step=4, ssd_scan=9)]
+             run(flash_attention=2, ssd_decode_step=4, ssd_scan=9,
+                 attention_bwd=5)]
     got = cs.main_path_launches(
-        serve, run(ssd_scan=5, flash_attention=1),
-        run(ssd_scan=7, flash_decode=1), [run(flash_attention=10)],
-        {"launches": {"ssd_scan": 2}})
+        serve, run(ssd_scan=5, flash_attention=1, attention_bwd=4),
+        run(ssd_scan=7, flash_decode=1, attention_bwd=2),
+        [run(flash_attention=10, attention_bwd=8)],
+        {"launches": {"ssd_scan": 2, "attention_bwd": 1}})
     assert got == {"flash_attention": 12, "flash_decode": 1,
                    "flash_decode_paged": 3, "ssd_scan": 14,
-                   "ssd_decode_step": 40}
+                   "ssd_decode_step": 40, "attention_bwd": 15}

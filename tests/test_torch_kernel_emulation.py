@@ -1,5 +1,5 @@
 """The CUDA sources of the decode kernel (dense and paged), the attention
-kernel and the SSD scan's four kernels, built for the CPU by
+kernel, its backward and the SSD scan's four kernels, built for the CPU by
 ``kernels/host_emulation.py`` (g++ against stand-in CUDA headers: one
 host thread per CUDA thread, the PTX helpers written from the PTX ISA's
 fragment layouts), driven through the wrappers' own argument lists and
@@ -8,12 +8,19 @@ the kernels' indexing, masking, split plan and combine, the tensor-core
 fragment layouts and races between threads, without a card; it says
 nothing about speed, and a missing ``cp.async`` wait would not show.
 
-The cases run in one subprocess with a time limit (a kernel whose
-barriers do not match would hang its emulation), built once.
+The cases run in a subprocess with a time limit (a kernel whose
+barriers do not match would hang its emulation), built once; the
+backward's cases in a second one.
 
 Tolerance: 2e-5 in f32 (summation order); 2e-2 in bf16 outputs (one
 bf16 rounding of outputs of magnitude up to ~2); the scan relative, as
-``chip_smoke.py`` checks it (each element within TOL * (1 + |plain|))."""
+``chip_smoke.py`` checks it (each element within TOL * (1 + |plain|)).
+The backward's bf16 gradients against autograd through the plain version
+in f32: each element within 2^-8 |plain| (one bf16 rounding of the f32
+gradient) + BWD_TOL x the largest |plain| (f32 sums in another order, P
+and dS carried as two bf16 terms: 16 bits); its f32 LSE and D within
+BWD_STAT_TOL x (1 + |plain|) (f32 sums in another order; D = dO . O over
+an O whose P.V products keep 16 bits of P)."""
 import json
 import os
 import subprocess
@@ -25,6 +32,7 @@ import pytest
 import torch
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+BWD_TOL, BWD_STAT_TOL = 1e-5, 1e-4
 
 # (B, S, H, K, Dh, window, q dtype, kv dtype, positions, SMs of the split
 # plan)
@@ -146,6 +154,21 @@ ATTN_CASES = {
     "qwen2moe-mha-dh128-f32": (1, 40, 2, 2, 128, None, "float32"),
     "starcoder2-gqa12-bf16": (1, 40, 12, 1, 128, None),
     "starcoder2-gqa12-f32": (1, 40, 12, 1, 128, None, "float32"),
+}
+
+# (B, S, H, K, Dh, window, scale): the backward in bf16; a block owns 64
+# rows, its 4 warps 16 each, and streams the other side's 64-line tiles
+BWD_CASES = {
+    "dh80-s100": (1, 100, 2, 2, 80, None, None),
+    "dh128-s100": (1, 100, 2, 2, 128, None, None),
+    "dh72-scale": (1, 100, 2, 2, 72, None, 1 / 64),
+    "gqa4-dh80": (1, 100, 4, 1, 80, None, None),
+    "window-dh80": (1, 100, 2, 2, 80, 24, None),
+    "gqa4-window-dh128-scale": (1, 100, 4, 1, 128, 16, 1 / 64),
+    "dh20-tail-b2": (2, 70, 2, 1, 20, None, None),
+    "s1": (1, 1, 2, 1, 80, None, None),
+    "four-tiles-dh64": (1, 200, 1, 1, 64, None, None),
+    "four-tiles-window-dh64": (1, 200, 2, 1, 64, 80, None),
 }
 
 
@@ -271,16 +294,73 @@ def _run_cases(out_dir: str) -> dict:
     return errs
 
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    out = tmp_path_factory.mktemp("host_emulation")
+def _run_bwd_cases(out_dir: str) -> dict:
+    """The backward source on each case's bf16 inputs (NaN in every
+    output and scratch element first), against autograd through
+    ``ref.attention_ref`` in f32 on the same values."""
+    from repro_torch.kernels import attention_bwd as ab
+    from repro_torch.kernels import host_emulation, ref
+
+    lib = host_emulation.build("attention_bwd", out_dir)
+    errs = {}
+    for i, (name, case) in enumerate(BWD_CASES.items()):
+        B, S, H, K, Dh, window, scale = case
+        rng = np.random.default_rng(500 + i)
+        q, k, v, do = (_pad_view(torch.from_numpy(rng.standard_normal(
+            (B, S, n, Dh), np.float32)).to(torch.bfloat16), 8)
+            for n in (H, K, K, H))
+        grads = [torch.full(t.shape, float("nan"), dtype=torch.bfloat16)
+                 for t in (q, k, v)]
+        lse, delta = torch.full((2, B, H, S), float("nan"))
+        err = lib.repro_attention_bwd(*ab.bwd_args(
+            q, k, v, do, *grads, lse, delta, window, None, scale))
+        ins = [t.float().requires_grad_(True) for t in (q, k, v)]
+        o = ref.attention_ref(*ins, window=window, scale=scale)
+        want = torch.autograd.grad(o, ins, do.float())
+        # the plain logits' logsumexp and rowsum(dO . O), (B, H, S)
+        G = H // K
+        logits = torch.einsum(
+            "bqhd,bkhd->bhqk", ins[0].detach(),
+            ins[1].detach().repeat_interleave(G, 2)) * \
+            ref.logits_scale(Dh, scale)
+        pos = torch.arange(S)
+        mask = pos[None, :] <= pos[:, None]
+        if window is not None:
+            mask &= (pos[:, None] - pos[None, :]) < window
+        lse_want = torch.logsumexp(logits.masked_fill(~mask, -torch.inf),
+                                   -1)
+        d_want = (do.float() * o.detach()).sum(-1).transpose(1, 2)
+        r = dict(err=err)
+        for n, g, w in zip(("dq", "dk", "dv"), grads, want):
+            r[n] = float((((g.float() - w).abs() - 2.0 ** -8 * w.abs())
+                          / max(1.0, float(w.abs().max()))).max())
+        r["lse"] = float(((lse - lse_want).abs()
+                          / (1 + lse_want.abs())).max())
+        r["delta"] = float(((delta - d_want).abs() / (1 + d_want.abs()))
+                           .max())
+        errs[name] = r
+    return errs
+
+
+def _emulate(out, *mode):
     env = dict(os.environ)
     src = str(Path(__file__).resolve().parents[1] / "src")
     env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
-    proc = subprocess.run([sys.executable, __file__, str(out)], env=env,
-                          capture_output=True, text=True, timeout=600)
+    proc = subprocess.run([sys.executable, __file__, str(out), *mode],
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    return _emulate(tmp_path_factory.mktemp("host_emulation"))
+
+
+@pytest.fixture(scope="module")
+def emulated_bwd(tmp_path_factory):
+    return _emulate(tmp_path_factory.mktemp("host_emulation_bwd"), "bwd")
 
 
 @pytest.mark.parametrize("name", list(DECODE_CASES))
@@ -316,5 +396,19 @@ def test_attention_source_matches_plain(emulated, name):
     assert r["max_abs"] <= TOL[r["dtype"]], r
 
 
+@pytest.mark.parametrize("name", list(BWD_CASES))
+def test_attention_bwd_source_matches_plain_autograd(emulated_bwd, name):
+    """dq, dk, dv (bf16) within one bf16 rounding of autograd's f32
+    gradients plus BWD_TOL of the largest; the pre-pass's LSE and D
+    within BWD_STAT_TOL x (1 + |plain|).  NaN anywhere fails."""
+    r = emulated_bwd[name]
+    assert r["err"] == 0
+    for n in ("dq", "dk", "dv"):
+        assert r[n] <= BWD_TOL, (n, r)
+    assert r["lse"] <= BWD_STAT_TOL, r
+    assert r["delta"] <= BWD_STAT_TOL, r
+
+
 if __name__ == "__main__":
-    print(json.dumps(_run_cases(sys.argv[1])))
+    run = _run_bwd_cases if sys.argv[2:] == ["bwd"] else _run_cases
+    print(json.dumps(run(sys.argv[1])))

@@ -3,7 +3,9 @@ tensors — the plain versions of the CUDA kernels — against the JAX
 package's Pallas kernels in interpret mode, on the same numpy inputs: the
 ``ATTN_CASES`` sweep of ``tests/test_kernels.py`` plus head_dim 80 and GQA
 cases, dense / ring / paged decode, f32 and bf16.  Also: the CUDA
-wrappers refuse what their kernels do not take, before any build.
+wrappers refuse what their kernels do not take, before any build; the
+attention backward's routing by dtype, its launch counter and its kernel
+names.
 
 Tolerance: 2e-5 in f32 (summation order); 2e-2 in bf16 (one bf16 rounding
 of outputs of magnitude up to ~2)."""
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro_torch.kernels import attention_bwd as tab
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import flash_decode as tfd
 from repro_torch.kernels import ops as tops
@@ -132,7 +135,10 @@ def _qkv(H=4, K=2, Dh=64, S=8, dtype=torch.float32, device="cpu"):
         torch.zeros(1, 1, 4, 64), torch.zeros(3, 4, 2, 64),
         torch.zeros(3, 4, 2, 64), torch.zeros(1, 2, dtype=torch.int32),
         torch.zeros(1, dtype=torch.int32)),
-], ids=["flash_attention", "flash_decode", "flash_decode_paged"])
+    lambda: tab.attention_bwd_bshd(*_qkv(dtype=torch.bfloat16),
+                                   _qkv(dtype=torch.bfloat16)[0]),
+], ids=["flash_attention", "flash_decode", "flash_decode_paged",
+        "attention_bwd"])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     """On a CPU tensor a wrapper raises at once: it never builds, never
     falls back and never counts a launch."""
@@ -163,6 +169,132 @@ def test_flash_attention_checks_shapes_and_dtypes(kwargs, match):
     q, k, v = (_FakeCuda(t) for t in _qkv(device="meta", **kwargs))
     with pytest.raises((TypeError, ValueError), match=match):
         tfa._check(q, k, v)
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(dtype=torch.float32), "bfloat16"),
+    (dict(Dh=160), "head_dim"),
+    (dict(H=6, K=4), "multiple"),
+    (dict(do_S=4), "does not match"),
+])
+def test_attention_bwd_checks_shapes_and_dtypes(kwargs, match):
+    do_S = kwargs.pop("do_S", 8)
+    kwargs.setdefault("dtype", torch.bfloat16)
+    q, k, v = (_FakeCuda(t) for t in _qkv(device="meta", **kwargs))
+    do = _FakeCuda(_qkv(device="meta", S=do_S, **kwargs)[0])
+    with pytest.raises((TypeError, ValueError), match=match):
+        tab._check(q, k, v, do)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_attention_backward_routes_by_dtype(monkeypatch, dtype):
+    """bf16: the backward calls the backward kernel's wrapper once, with
+    the forward's window and scale, and returns its gradients (None where
+    none is asked for); f32: the plain recompute under autograd.  CPU
+    stand-ins take the wrappers' places."""
+    from repro_torch.kernels import ref
+
+    calls = []
+
+    def fake_bwd(q, k, v, do, window=None, scale=None):
+        calls.append((window, scale))
+        ins = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+        with torch.enable_grad():
+            out = ref.attention_ref(*ins, window=window, scale=scale)
+        return tuple(g.to(dtype) for g in torch.autograd.grad(
+            out, ins, do.float()))
+
+    monkeypatch.setattr(tops._fa, "flash_attention_bshd",
+                        lambda q, k, v, window=None, scale=None:
+                        ref.attention_ref(q, k, v, window=window,
+                                          scale=scale))
+    monkeypatch.setattr(tops._fa_bwd, "attention_bwd_bshd", fake_bwd)
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (1, 12, n, 16)).astype(np.float32)).to(dtype) for n in (4, 2, 2))
+    q.requires_grad_(True)
+    k.requires_grad_(True)
+    w = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32))
+    out = tops._FlashAttention.apply(q, k, v, 5, 0.25)
+    gq, gk = torch.autograd.grad((out.float() * w).sum(), (q, k))
+    assert calls == ([(5, 0.25)] if dtype == torch.bfloat16 else [])
+    assert v.grad is None
+    ins = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(
+        (ref.attention_ref(*ins, window=5, scale=0.25) * w).sum(), ins[:2])
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    for g, r in zip((gq, gk), want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), r, atol=tol, rtol=tol)
+
+
+def test_attention_bwd_reads_the_output_gradient_aligned():
+    """The output's gradient is read as it is where the kernel's 16-byte
+    copies can read it, else from a copy whose rows are padded to 16
+    bytes, with the same values."""
+    from repro_torch.kernels import build
+
+    ok = torch.zeros(2, 5, 3, 48, dtype=torch.bfloat16)[..., :24]
+    assert tab._aligned(ok) is ok
+    for t in (torch.randn(2, 5, 3, 20).to(torch.bfloat16),
+              torch.randn(2, 5, 24, 3).to(torch.bfloat16).transpose(2, 3)):
+        got = tab._aligned(t)
+        assert got is not t and build.aligned(got) and got.stride(-1) == 1
+        assert torch.equal(got, t)
+
+
+def test_launch_counters_carry_attention_bwd():
+    """``attention_bwd`` counts wrapper calls, and the three counter
+    functions carry it as they carry every kernel's."""
+    tops.reset_launch_counts()
+    assert tops.launch_counts()["attention_bwd"] == 0
+    tops.add_launch_counts({"attention_bwd": 3, "flash_attention": 6}, 2)
+    assert tops.launch_counts()["attention_bwd"] == 6
+    tops.add_launch_counts({"attention_bwd": 3}, -2)
+    assert tops.launch_counts()["attention_bwd"] == 0
+    tab.launches = 4
+    assert tops.launch_counts()["attention_bwd"] == 4
+    tops.reset_launch_counts()
+    assert set(tops.launch_counts().values()) == {0}
+
+
+def test_backward_kernel_names_stay_out_of_the_forward_roofline():
+    """Every kernel of ``attention_bwd.cu`` is named ``attn_bwd_...``
+    and none matches the forward's roofline patterns
+    (``cardbench/roofline/flash_attention.py``), so the forward's share
+    never counts the backward's time, and no forward kernel matches the
+    backward's pattern."""
+    import importlib.util
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+
+    root = Path(__file__).resolve().parents[1] / "cardbench" / "roofline"
+
+    def patterns(name):
+        spec = importlib.util.spec_from_file_location(
+            f"roofline_{name}", root / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod.PATTERNS
+
+    def kernels(src):
+        text = (build.CSRC / src).read_text()
+        return re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
+                          r"\([^)]*\)\s+)?(\w+)", text)
+
+    bwd, fwd = kernels("attention_bwd.cu"), kernels("flash_attention.cu")
+    assert sorted(bwd) == ["attn_bwd_dkdv_kernel", "attn_bwd_dq_kernel",
+                           "attn_bwd_pre_kernel"]
+    assert len(fwd) == 2
+    for name in bwd:
+        assert not any(p in name for p in patterns("flash_attention"))
+        assert any(p in name for p in patterns("attention_bwd"))
+    for name in fwd:
+        assert not any(p in name for p in patterns("attention_bwd"))
+        assert any(p in name for p in patterns("flash_attention"))
 
 
 def test_ops_refuse_unknown_devices():

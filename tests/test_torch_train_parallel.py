@@ -465,9 +465,9 @@ def test_chip_smoke_resume_phase_on_cpu(capsys):
                for r in out["runs"] if r["kind"] == "f32")
     text = capsys.readouterr().out
     assert text.count("digests equal the saving run's at step 1") == 4
-    assert set(out["launches"]) == {"flash_attention", "flash_decode",
-                                    "flash_decode_paged", "ssd_scan",
-                                    "ssd_decode_step"}
+    assert set(out["launches"]) == {"flash_attention", "attention_bwd",
+                                    "flash_decode", "flash_decode_paged",
+                                    "ssd_scan", "ssd_decode_step"}
 
 
 def test_seq_parallel_one_rank_matches_jax():
