@@ -23,9 +23,6 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import logits_scale
 
-#: wrapper calls since the last reset (each launches three kernels)
-launches = 0
-
 
 def _check(q, k, v, do):
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
@@ -94,7 +91,6 @@ def attention_bwd_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v with a unit last stride, base pointers and strides in
     multiples of 16 bytes (as the forward kernel takes them).  Returns new
     contiguous tensors of the inputs' shapes, bfloat16."""
-    global launches
     _check(q, k, v, do)
     do = _aligned(do)
     B, S, H, _ = q.shape
@@ -103,11 +99,6 @@ def attention_bwd_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     lse, delta = torch.empty((2, B, H, S), dtype=torch.float32,
                              device=q.device)
-    lib = build.library("attention_bwd")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.repro_attention_bwd(*bwd_args(
-            q, k, v, do, dq, dk, dv, lse, delta, window, stream, scale))
-    build.check(err, "attention_bwd")
-    launches += 1
+    build.launch("attention_bwd", q.device, lambda stream: bwd_args(
+        q, k, v, do, dq, dk, dv, lse, delta, window, stream, scale))
     return dq, dk, dv

@@ -1,11 +1,14 @@
-"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+"""Build, load and launch the hand-written CUDA kernels (``csrc/*.cu``).
 
-Each source compiles with ``nvcc`` for ``sm_90a`` into its own shared
-library with a plain C interface, loaded with :mod:`ctypes`.  The build
-runs at first use, never at import: the libraries land in
+:data:`SIGNATURES` is the one table of them: each library ``<lib>``
+compiles from ``csrc/<lib>.cu`` with ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, loaded with :mod:`ctypes`.  The
+build runs at first use, never at import: the libraries land in
 ``build/kernels/<hash>/`` at the repository root, keyed by a hash of the
 sources and flags, so a changed source rebuilds and an unchanged one is
 reused.  All sources compile in parallel, one ``nvcc`` each.
+:func:`launch` calls an entry point on the current stream and counts it
+in :data:`launches`.
 
 A build that fails raises; there is no fallback to the plain versions.
 """
@@ -19,11 +22,11 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: build/kernels at the repository root (listed in .gitignore)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("flash_attention.cu", "flash_decode.cu", "ssd_scan.cu",
-           "ssd_decode.cu", "attention_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -32,11 +35,15 @@ DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 
 _c_ptr, _c_int, _c_i64, _c_f32 = (ctypes.c_void_p, ctypes.c_int,
                                   ctypes.c_int64, ctypes.c_float)
-#: argtypes of every C entry point, by library
+#: argtypes of every C entry point, by library (``csrc/<library>.cu``)
 SIGNATURES = {
     "flash_attention": {
         "repro_flash_attention": (
             [_c_ptr] * 4 + [_c_int] * 7 + [_c_i64] * 12 + [_c_f32, _c_ptr]),
+    },
+    "attention_bwd": {
+        "repro_attention_bwd": (
+            [_c_ptr] * 9 + [_c_int] * 6 + [_c_i64] * 21 + [_c_f32, _c_ptr]),
     },
     "flash_decode": {
         "repro_flash_decode": (
@@ -52,11 +59,15 @@ SIGNATURES = {
         "repro_ssd_decode_step": (
             [_c_ptr] * 8 + [_c_int] * 5 + [_c_i64] * 7 + [_c_ptr]),
     },
-    "attention_bwd": {
-        "repro_attention_bwd": (
-            [_c_ptr] * 9 + [_c_int] * 6 + [_c_i64] * 21 + [_c_f32, _c_ptr]),
-    },
 }
+SOURCES = tuple(f"{lib}.cu" for lib in SIGNATURES)
+#: (library, C name) of each entry point, by its name without ``repro_``
+_ENTRY = {fn.removeprefix("repro_"): (lib, fn)
+          for lib, fns in SIGNATURES.items() for fn in fns}
+#: launches since the last reset, by entry point (the keys of
+#: :data:`_ENTRY`): calls of :func:`launch`, whatever number of kernels
+#: an entry point launches (``attention_bwd`` three, ``ssd_scan`` four)
+launches = dict.fromkeys(_ENTRY, 0)
 
 _libs: dict = {}
 
@@ -138,6 +149,19 @@ def check(err: int, what: str):
     """Raise on a non-zero CUDA error code returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def launch(name: str, device: torch.device, args) -> None:
+    """Call the entry point ``repro_<name>`` on ``device``'s current
+    stream with the argument list ``args(stream)``, raise on its CUDA
+    error and count it in :data:`launches`."""
+    lib, fn = _ENTRY[name]
+    entry = getattr(library(lib), fn)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = entry(*args(stream))
+    check(err, name)
+    launches[name] += 1
 
 
 def aligned(t) -> bool:

@@ -20,10 +20,6 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import logits_scale
 
-#: kernel launches since the last reset (incremented only where the
-#: kernel is launched)
-launches = 0
-
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -85,14 +81,8 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pointers and strides in multiples of 16 bytes).  Returns a new
     contiguous (B, S, H, Dh) tensor of q's dtype, f32 softmax inside of
     the logits times ``scale`` (None: ``Dh ** -0.5``)."""
-    global launches
     _check(q, k, v)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lib = build.library("flash_attention")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.repro_flash_attention(*attention_args(q, k, v, o, window,
-                                                        stream, scale))
-    build.check(err, "flash_attention")
-    launches += 1
+    build.launch("flash_attention", q.device, lambda stream: attention_args(
+        q, k, v, o, window, stream, scale))
     return o

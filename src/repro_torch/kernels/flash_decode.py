@@ -26,11 +26,6 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import logits_scale
 
-#: kernel launches since the last reset, per kernel (incremented only
-#: where the kernel is launched)
-launches = 0
-paged_launches = 0
-
 # (q dtype, kv dtype) pairs the kernels take; the output has q's dtype
 _PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
           (torch.float32, torch.bfloat16)}
@@ -160,7 +155,6 @@ def flash_decode_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the logits (None: ``Dh ** -0.5``).  Returns a new
     (B, 1, H, Dh) tensor of q's dtype.  Launches on the current stream;
     calls on two streams of one device at once would share counters."""
-    global launches
     _check_common("flash_decode", q, k, v, pos)
     if k.shape[0] != q.shape[0]:
         raise ValueError(f"flash_decode: cache batch {k.shape[0]} != "
@@ -174,13 +168,8 @@ def flash_decode_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     part = torch.empty(B * K * n_splits * (H // K) * (Dh + 2),
                        dtype=torch.float32, device=q.device)
     counter = _counter(q.device, B * K)
-    lib = build.library("flash_decode")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.repro_flash_decode(*dense_args(
-            q, k, v, o, pos, part, counter, window, chunk, stream, scale))
-    build.check(err, "flash_decode")
-    launches += 1
+    build.launch("flash_decode", q.device, lambda stream: dense_args(
+        q, k, v, o, pos, part, counter, window, chunk, stream, scale))
     return o
 
 
@@ -217,7 +206,6 @@ def flash_decode_paged_bshd(q: torch.Tensor, k: torch.Tensor,
     a new (B, 1, H, Dh) tensor of q's dtype.  Launches on the current
     stream; calls on two streams of one device at once would
     share counters."""
-    global paged_launches
     _check_common("flash_decode_paged", q, k, v, pos)
     B, _, H, Dh = q.shape
     ps, K = k.shape[1], k.shape[2]
@@ -235,12 +223,6 @@ def flash_decode_paged_bshd(q: torch.Tensor, k: torch.Tensor,
     part = torch.empty(B * K * n_splits * (H // K) * (Dh + 2),
                        dtype=torch.float32, device=q.device)
     counter = _counter(q.device, B * K)
-    lib = build.library("flash_decode")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.repro_flash_decode_paged(*paged_args(
-            q, k, v, o, page_table, pos, part, counter, chunk, stream,
-            scale))
-    build.check(err, "flash_decode_paged")
-    paged_launches += 1
+    build.launch("flash_decode_paged", q.device, lambda stream: paged_args(
+        q, k, v, o, page_table, pos, part, counter, chunk, stream, scale))
     return o

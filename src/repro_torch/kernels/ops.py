@@ -26,6 +26,7 @@ import contextlib
 import torch
 
 from repro_torch.kernels import attention_bwd as _fa_bwd
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import ref
@@ -167,33 +168,20 @@ def ssd_decode_step(state, x, dt, A, D, Bm, Cm):
 
 
 def launch_counts() -> dict:
-    """Kernel launches since the last :func:`reset_launch_counts`
-    (``attention_bwd`` and ``ssd_scan``: wrapper calls, whatever number of
-    launches a call makes)."""
-    return {"flash_attention": _fa.launches,
-            "attention_bwd": _fa_bwd.launches,
-            "flash_decode": _fd.launches,
-            "flash_decode_paged": _fd.paged_launches,
-            "ssd_scan": _ssd.launches,
-            "ssd_decode_step": _ssd_step.launches}
+    """Kernel launches since the last :func:`reset_launch_counts`, by entry
+    point (``attention_bwd`` and ``ssd_scan``: wrapper calls, whatever
+    number of launches a call makes)."""
+    return dict(build.launches)
 
 
 def reset_launch_counts():
-    _fa.launches = 0
-    _fa_bwd.launches = 0
-    _fd.launches = 0
-    _fd.paged_launches = 0
-    _ssd.launches = 0
-    _ssd_step.launches = 0
+    for name in build.launches:
+        build.launches[name] = 0
 
 
 def add_launch_counts(counts: dict, times: int = 1):
     """Add ``times`` x ``counts`` (a :func:`launch_counts` difference) to
     the counters: a CUDA graph's replay launches what its capture counted,
     and the capture itself launches nothing (``times=-1``)."""
-    _fa.launches += times * counts.get("flash_attention", 0)
-    _fa_bwd.launches += times * counts.get("attention_bwd", 0)
-    _fd.launches += times * counts.get("flash_decode", 0)
-    _fd.paged_launches += times * counts.get("flash_decode_paged", 0)
-    _ssd.launches += times * counts.get("ssd_scan", 0)
-    _ssd_step.launches += times * counts.get("ssd_decode_step", 0)
+    for name in build.launches:
+        build.launches[name] += times * counts.get(name, 0)

@@ -16,10 +16,6 @@ import torch
 
 from repro_torch.kernels import build
 
-#: kernel launches since the last reset (incremented only where the
-#: kernel is launched)
-launches = 0
-
 _DTYPES = (torch.float32, torch.bfloat16)
 #: the largest state size: a row of N / 4 float4s is at most one warp
 MAX_STATE = 128
@@ -84,14 +80,8 @@ def ssd_decode_step_bhpn(state, x, dt, A, D, Bm, Cm) -> torch.Tensor:
     and Cm: (B, N); x, Bm and Cm in one of float32 or bfloat16, read
     through their strides.  Returns a new (B, H, P) tensor y of x's
     dtype."""
-    global launches
     _check(state, x, dt, A, D, Bm, Cm)
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    lib = build.library("ssd_decode")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.repro_ssd_decode_step(*step_args(state, x, dt, A, D, Bm,
-                                                   Cm, y, stream))
-    build.check(err, "ssd_decode_step")
-    launches += 1
+    build.launch("ssd_decode_step", x.device, lambda stream: step_args(
+        state, x, dt, A, D, Bm, Cm, y, stream))
     return y

@@ -24,9 +24,6 @@ import torch
 
 from repro_torch.kernels import build
 
-#: wrapper calls that launched the kernels since the last reset
-#: (incremented only where they are launched)
-launches = 0
 #: kernel launches one call makes (csrc/ssd_scan.cu)
 KERNEL_LAUNCHES = 4
 
@@ -109,21 +106,15 @@ def ssd_scan_bshp(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                   chunk: int) -> torch.Tensor:
     """The SSD chunked scan on the card: :data:`KERNEL_LAUNCHES` kernel
     launches on the current stream, counted as one call in
-    :data:`launches`.
+    ``build.launches``.
 
     x: (B, S, H, P) and Bm/Cm: (B, S, N), float32 or bfloat16 (one dtype),
     unit stride on the last axis; dt and a = dt * A: (B, S, H) float32, any
     strides; S % chunk == 0.  Returns a new contiguous (B, S, H, P) tensor
     of x's dtype; the state and every sum inside are f32."""
-    global launches
     _check(x, dt, a, Bm, Cm, chunk)
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    lib = build.library("ssd_scan")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.repro_ssd_scan(*scan_args(
-            x, dt, a, Bm, Cm, y, *scratch(x, Bm.shape[2], chunk), chunk,
-            stream))
-    build.check(err, "ssd_scan")
-    launches += 1
+    bufs = scratch(x, Bm.shape[2], chunk)
+    build.launch("ssd_scan", x.device, lambda stream: scan_args(
+        x, dt, a, Bm, Cm, y, *bufs, chunk, stream))
     return y

@@ -148,11 +148,23 @@ def build_hidden(params, batch: dict, cfg: ModelConfig):
     if "tokens" in batch:
         parts.append(embed_tokens(params, batch["tokens"], cfg))
     h = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-    if cfg.pos_embedding == "sinusoidal":
-        S = h.shape[1]
-        pe = A.sinusoidal_pe(torch.arange(S, device=h.device), cfg.d_model)
-        h = h + pe.to(dtype)[None]
-    return seq_slice(h)
+    return seq_slice(add_positions(h, 0, cfg))
+
+
+def add_positions(h, start, cfg: ModelConfig):
+    """``h`` (B, S, d) plus the sinusoidal embedding of its rows' absolute
+    positions ``start + [0, S)`` (``start``: an int, or a scalar or (B,)
+    tensor of each sequence's first position); ``h`` itself under rotary
+    positions or none."""
+    if cfg.pos_embedding != "sinusoidal":
+        return h
+    S = h.shape[1]
+    if isinstance(start, int):
+        pos = torch.arange(start, start + S, device=h.device)
+    else:
+        pos = (torch.as_tensor(start, device=h.device).reshape(-1, 1)
+               + torch.arange(S, device=h.device))
+    return h + A.sinusoidal_pe(pos, cfg.d_model).to(h.dtype)
 
 
 def hidden_len(batch: dict) -> int:
@@ -194,6 +206,39 @@ def _zeros_aux(device):
             for k in AUX_KEYS}
 
 
+def _ffn(p, x, ffn: str, cfg: ModelConfig, run: Optional[RunConfig] = None,
+         aux: Optional[dict] = None):
+    """The sublayer's FFN half (dense, MoE or none) with its residual;
+    returns ``(x, aux)``.
+
+    Training passes its ``run`` and its aux sums: the MoE aux terms add
+    into ``aux``, the MoE combine follows ``run.moe_defer_combine``, and a
+    dense block under a training TP plan runs column- then row-parallel
+    (Megatron).  Serving passes neither: the MoE combine is the plain one,
+    its aux terms are dropped, and a dense block runs as the serving TP
+    scope shards it (its reduction is inside ``mlp_apply``)."""
+    if ffn == "none":
+        return x, aux
+    h = rmsnorm(x, p["norm2"]["scale"], cfg.norm_eps)
+    if ffn == "moe":
+        h, moe_aux = MOE.moe_apply(
+            p["moe"], h, cfg,
+            defer_combine=run is not None and run.moe_defer_combine)
+        if aux is not None:
+            aux = {k: aux[k] + moe_aux[k] for k in AUX_KEYS}
+    else:
+        plan = None if run is None else tp_train()
+        if plan is not None and plan.mlp:
+            # column-parallel w1/w3, row-parallel w2 (Megatron)
+            h = tp_exit(mlp_apply(p["mlp"], tp_enter(h), cfg.mlp_type),
+                        partial=True)
+        else:
+            # replicated: a position-wise block runs on the rows as they
+            # are (this rank's, with the sequence sharded)
+            h = mlp_apply(p["mlp"], h, cfg.mlp_type)
+    return residual(x, h, cfg), aux
+
+
 def sublayer_train(p, x, mixer: str, ffn: str, cfg: ModelConfig,
                    run: RunConfig):
     aux = _zeros_aux(x.device)
@@ -203,25 +248,7 @@ def sublayer_train(p, x, mixer: str, ffn: str, cfg: ModelConfig,
                               one_block=run.seq_parallel)
     else:
         h = SSM.ssm_train(p["ssm"], h, cfg, use_kernels=run.use_kernels)
-    x = residual(x, h, cfg)
-    if ffn != "none":
-        h = rmsnorm(x, p["norm2"]["scale"], cfg.norm_eps)
-        if ffn == "moe":
-            h, moe_aux = MOE.moe_apply(p["moe"], h, cfg,
-                                       defer_combine=run.moe_defer_combine)
-            aux = {k: aux[k] + moe_aux[k] for k in AUX_KEYS}
-        else:
-            plan = tp_train()
-            if plan is not None and plan.mlp:
-                # column-parallel w1/w3, row-parallel w2 (Megatron)
-                h = tp_exit(mlp_apply(p["mlp"], tp_enter(h), cfg.mlp_type),
-                            partial=True)
-            else:
-                # replicated: a position-wise block runs on the rows as
-                # they are (this rank's, with the sequence sharded)
-                h = mlp_apply(p["mlp"], h, cfg.mlp_type)
-        x = residual(x, h, cfg)
-    return x, aux
+    return _ffn(p, residual(x, h, cfg), ffn, cfg, run, aux)
 
 
 def backbone_train(params, h, cfg: ModelConfig, run: RunConfig):
@@ -387,18 +414,6 @@ def cache_kv_head_dim(cfg: ModelConfig, paging: bool = False) -> int:
 
 # --------------------------------------------------------------- prefill ----
 
-def _ffn(p, x, ffn: str, cfg: ModelConfig):
-    """The sublayer's FFN half (dense, MoE or none) with its residual."""
-    if ffn == "none":
-        return x
-    hh = rmsnorm(x, p["norm2"]["scale"], cfg.norm_eps)
-    if ffn == "moe":
-        hh, _ = MOE.moe_apply(p["moe"], hh, cfg)
-    else:
-        hh = mlp_apply(p["mlp"], hh, cfg.mlp_type)
-    return residual(x, hh, cfg)
-
-
 def _stack_caches(per_group: list) -> list:
     """[group][slot] cache dicts -> per slot, each leaf stacked over the
     groups."""
@@ -421,13 +436,50 @@ _MIXER_SPAN = {"attn": "attention", "ssm": "ssm"}
 _PREFILL_MIXER_SPAN = {"attn": "attention", "ssm": "ssm_prefill"}
 
 
-def _layer_names(sched, sublayers: int, mixer_span=None) -> list:
+def _layer_names(sched, sublayers: int, mixer_span: dict) -> list:
     """The span names of ``sublayers`` sublayers run in the schedule's
-    order: the mixer's (``mixer_span``, default :data:`_MIXER_SPAN`),
-    then ``ffn``."""
-    names = _MIXER_SPAN if mixer_span is None else mixer_span
-    period = [n for mixer, _ in sched for n in (names[mixer], "ffn")]
+    order: the mixer's (``mixer_span``), then ``ffn``."""
+    period = [n for mixer, _ in sched for n in (mixer_span[mixer], "ffn")]
     return period * (sublayers // len(sched))
+
+
+def _layers(params, h, cfg: ModelConfig, mix, cache=None, spans=None):
+    """Run ``h`` through every layer group and sublayer of the schedule, as
+    every serving entry point does: ``norm1``, the sequence mixer, the
+    residual, then the FFN half (:func:`_ffn`).
+
+    ``mix(mixer, p, x, c) -> (y, out)`` is the entry point's mixer call:
+    ``mixer`` the schedule's ("attn" or "ssm"), ``p`` the sublayer's
+    weights, ``x`` the normed hidden states, ``c`` the sublayer's group
+    slice of ``cache`` (None without one).  With ``spans`` (mixer -> span
+    name) and a span scope set, the sublayers are recorded as layer
+    spans.  Returns ``(h, outs)``, ``outs[group][slot]`` each sublayer's
+    ``out``."""
+    P = group_period(cfg)
+    sched = layer_schedule(cfg)[:P]
+    sc = None if spans is None else SPANS.get()
+    marks = [] if sc is not None else None
+    per_group = []
+    for g in range(_groups(params)):
+        outs = []
+        gp = _use_group(params, g, P)
+        for i, (mixer, ffn) in enumerate(sched):
+            p = gp[i]
+            c = None if cache is None else _take(cache["layers"][i], g)
+            if marks is not None:
+                marks.append(sc.tracer.clock())
+            hh, out = mix(mixer, p,
+                          rmsnorm(h, p["norm1"]["scale"], cfg.norm_eps), c)
+            if marks is not None:
+                marks.append(sc.tracer.clock())
+            h, _ = _ffn(p, residual(h, hh, cfg), ffn, cfg)
+            outs.append(out)
+        per_group.append(outs)
+    if marks is not None:
+        marks.append(sc.tracer.clock())
+        sc.layers(_layer_names(sched, len(marks) // 2, spans), marks,
+                  "model")
+    return h, per_group
 
 
 def prefill(params, batch: dict, cfg: ModelConfig, run: RunConfig,
@@ -458,8 +510,6 @@ def prefill(params, batch: dict, cfg: ModelConfig, run: RunConfig,
     under a sliding window; see :func:`models.attention.attention_prefill`)
     or ``{"state" (G, B, H, P, N), "conv" (G, B, W-1, C)}``.
     """
-    P = group_period(cfg)
-    sched = layer_schedule(cfg)[:P]
     params = use_params(params, "root")
     h = build_hidden(params, batch, cfg)
     S = h.shape[1]
@@ -475,35 +525,17 @@ def prefill(params, batch: dict, cfg: ModelConfig, run: RunConfig,
         valid = (idx >= front_pad) & (idx < front_pad + num_real)
         positions = idx - front_pad
         conv_end = front_pad + num_real
-    per_group = []
-    sc = SPANS.get()
-    marks = [] if sc is not None else None
-    for g in range(_groups(params)):
-        caches = []
-        gp = _use_group(params, g, P)
-        for i, (mixer, ffn) in enumerate(sched):
-            p = gp[i]
-            if marks is not None:
-                marks.append(sc.tracer.clock())
-            hh = rmsnorm(h, p["norm1"]["scale"], cfg.norm_eps)
-            if mixer == "attn":
-                hh, c = A.attention_prefill(p["attn"], hh, cfg, slots,
-                                            use_kernels=run.use_kernels,
-                                            positions=positions,
-                                            valid=valid, roll=front_pad)
-            else:
-                hh, c = SSM.ssm_prefill(p["ssm"], hh, cfg,
-                                        use_kernels=run.use_kernels,
-                                        valid=valid, conv_end=conv_end)
-            if marks is not None:
-                marks.append(sc.tracer.clock())
-            h = _ffn(p, residual(h, hh, cfg), ffn, cfg)
-            caches.append(c)
-        per_group.append(caches)
-    if marks is not None:
-        marks.append(sc.tracer.clock())
-        sc.layers(_layer_names(sched, len(marks) // 2, _PREFILL_MIXER_SPAN),
-                  marks, "model")
+
+    def mix(mixer, p, x, _c):
+        if mixer == "attn":
+            return A.attention_prefill(p["attn"], x, cfg, slots,
+                                       use_kernels=run.use_kernels,
+                                       positions=positions, valid=valid,
+                                       roll=front_pad)
+        return SSM.ssm_prefill(p["ssm"], x, cfg, use_kernels=run.use_kernels,
+                               valid=valid, conv_end=conv_end)
+
+    h, per_group = _layers(params, h, cfg, mix, spans=_PREFILL_MIXER_SPAN)
     h = rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)
     h_last = h[:, -1:] if last_pos is None else h[:, last_pos:last_pos + 1]
     logits = unembed(params, h_last, cfg)
@@ -531,29 +563,15 @@ def prefill_suffix(params, batch: dict, cache, page_table, start,
     pages are never written.  Full-attention configs only (paging already
     gates SSM out).
     """
-    P = group_period(cfg)
-    sched = layer_schedule(cfg)[:P]
     assert _attn_only(cfg), "prefix reuse is full-attention only"
     params = use_params(params, "root")
-    h = embed_tokens(params, batch["tokens"], cfg)
-    S = h.shape[1]
-    if cfg.pos_embedding == "sinusoidal":
-        pe = A.sinusoidal_pe(start + torch.arange(S, device=h.device),
-                             cfg.d_model)
-        h = h + pe.to(h.dtype)[None]
-    per_group = []
-    for g in range(_groups(params)):
-        caches = []
-        gp = _use_group(params, g, P)
-        for i, (_mixer, ffn) in enumerate(sched):
-            p = gp[i]
-            c = _take(cache["layers"][i], g)
-            hh = rmsnorm(h, p["norm1"]["scale"], cfg.norm_eps)
-            hh, kv = A.attention_prefill_paged(p["attn"], hh, c, page_table,
-                                               start, cfg)
-            h = _ffn(p, residual(h, hh, cfg), ffn, cfg)
-            caches.append(kv)
-        per_group.append(caches)
+    h = add_positions(embed_tokens(params, batch["tokens"], cfg), start, cfg)
+
+    def mix(_mixer, p, x, c):
+        return A.attention_prefill_paged(p["attn"], x, c, page_table, start,
+                                         cfg)
+
+    h, per_group = _layers(params, h, cfg, mix, cache=cache)
     h = rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)
     h_last = h[:, -1:] if last_pos is None else h[:, last_pos:last_pos + 1]
     return unembed(params, h_last, cfg), {"layers": _stack_caches(per_group)}
@@ -583,41 +601,20 @@ def decode_step(params, cache, token, pos, cfg: ModelConfig, run: RunConfig,
     ((B, n_pages) int32) routes attention through the paged KV pool.
     Writes the new KV lines and SSM states into ``cache`` in place;
     returns (logits (B,1,V), cache)."""
-    P = group_period(cfg)
-    sched = layer_schedule(cfg)[:P]
-    B = token.shape[0]
     params = use_params(params, "root")
-    h = embed_tokens(params, token, cfg)
-    if cfg.pos_embedding == "sinusoidal":
-        posv = torch.broadcast_to(torch.as_tensor(pos, device=h.device), (B,))
-        pe = A.sinusoidal_pe(posv[:, None], cfg.d_model)   # (B,1,d)
-        h = h + pe.to(h.dtype)
-    sc = SPANS.get()
-    marks = [] if sc is not None else None
-    for g in range(_groups(params)):
-        gp = _use_group(params, g, P)
-        for i, (mixer, ffn) in enumerate(sched):
-            p = gp[i]
-            c = _take(cache["layers"][i], g)
-            if marks is not None:
-                marks.append(sc.tracer.clock())
-            hh = rmsnorm(h, p["norm1"]["scale"], cfg.norm_eps)
-            if mixer != "attn":
-                hh, _ = SSM.ssm_decode(p["ssm"], hh, c, cfg,
-                                       use_kernels=run.use_kernels)
-            elif page_table is not None:
-                hh, _ = A.attention_decode_paged(
-                    p["attn"], hh, c, pos, page_table, cfg,
-                    use_kernels=run.use_kernels)
-            else:
-                hh, _ = A.attention_decode(p["attn"], hh, c, pos, cfg,
-                                           use_kernels=run.use_kernels)
-            if marks is not None:
-                marks.append(sc.tracer.clock())
-            h = _ffn(p, residual(h, hh, cfg), ffn, cfg)
-    if marks is not None:
-        marks.append(sc.tracer.clock())
-        sc.layers(_layer_names(sched, len(marks) // 2), marks, "model")
+    h = add_positions(embed_tokens(params, token, cfg), pos, cfg)
+
+    def mix(mixer, p, x, c):
+        if mixer != "attn":
+            return SSM.ssm_decode(p["ssm"], x, c, cfg,
+                                  use_kernels=run.use_kernels)
+        if page_table is not None:
+            return A.attention_decode_paged(p["attn"], x, c, pos, page_table,
+                                            cfg, use_kernels=run.use_kernels)
+        return A.attention_decode(p["attn"], x, c, pos, cfg,
+                                  use_kernels=run.use_kernels)
+
+    h, _ = _layers(params, h, cfg, mix, cache=cache, spans=_MIXER_SPAN)
     h = rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)
     return unembed(params, h, cfg), cache
 
@@ -639,23 +636,15 @@ def verify_tokens(params, cache, tokens, pos0, pages, offs, page_table,
     kernel).  Writes the S lines into the pool in place; returns
     (logits (B, S, V), cache).  Full-attention configs only (paging
     already gates SSM out)."""
-    P = group_period(cfg)
-    sched = layer_schedule(cfg)[:P]
     assert _attn_only(cfg), "speculative verify is full-attention only"
-    h = embed_tokens(params, tokens, cfg)
-    if cfg.pos_embedding == "sinusoidal":
-        S = tokens.shape[1]
-        posm = (torch.as_tensor(pos0, device=h.device)[:, None]
-                + torch.arange(S, device=h.device)[None, :])
-        h = h + A.sinusoidal_pe(posm, cfg.d_model).to(h.dtype)
-    for g in range(_groups(params)):
-        for i, (_mixer, ffn) in enumerate(sched):
-            p = _take(params["layers"][i], g)
-            c = _take(cache["layers"][i], g)
-            hh = rmsnorm(h, p["norm1"]["scale"], cfg.norm_eps)
-            hh, _ = A.attention_verify(p["attn"], hh, c, pos0, pages, offs,
-                                       page_table, cfg)
-            h = _ffn(p, residual(h, hh, cfg), ffn, cfg)
+    params = use_params(params, "root")
+    h = add_positions(embed_tokens(params, tokens, cfg), pos0, cfg)
+
+    def mix(_mixer, p, x, c):
+        return A.attention_verify(p["attn"], x, c, pos0, pages, offs,
+                                  page_table, cfg)
+
+    h, _ = _layers(params, h, cfg, mix, cache=cache)
     h = rmsnorm(h, params["final_norm"]["scale"], cfg.norm_eps)
     return unembed(params, h, cfg), cache
 

@@ -244,17 +244,29 @@ def test_attention_bwd_reads_the_output_gradient_aligned():
         assert torch.equal(got, t)
 
 
-def test_launch_counters_carry_attention_bwd():
-    """``attention_bwd`` counts wrapper calls, and the three counter
-    functions carry it as they carry every kernel's."""
+#: every kernel entry point's counter: the tests' one literal list of
+#: them, so that a dropped counter fails
+COUNTERS = ("flash_attention", "attention_bwd", "flash_decode",
+            "flash_decode_paged", "ssd_scan", "ssd_decode_step")
+
+
+@pytest.mark.parametrize("name", COUNTERS)
+def test_launch_counters_carry_each_kernel(name):
+    """The three counter functions carry each kernel's counter, the one
+    that ``build.launch`` counts; a difference of another counter leaves
+    it alone."""
+    from repro_torch.kernels import build
+
     tops.reset_launch_counts()
-    assert tops.launch_counts()["attention_bwd"] == 0
-    tops.add_launch_counts({"attention_bwd": 3, "flash_attention": 6}, 2)
-    assert tops.launch_counts()["attention_bwd"] == 6
-    tops.add_launch_counts({"attention_bwd": 3}, -2)
-    assert tops.launch_counts()["attention_bwd"] == 0
-    tab.launches = 4
-    assert tops.launch_counts()["attention_bwd"] == 4
+    assert set(tops.launch_counts()) == set(COUNTERS)
+    assert tops.launch_counts()[name] == 0
+    other = "ssd_scan" if name != "ssd_scan" else "flash_attention"
+    tops.add_launch_counts({name: 3, other: 6}, 2)
+    assert tops.launch_counts()[name] == 6
+    tops.add_launch_counts({name: 3}, -2)
+    assert tops.launch_counts()[name] == 0
+    build.launches[name] = 4
+    assert tops.launch_counts()[name] == 4
     tops.reset_launch_counts()
     assert set(tops.launch_counts().values()) == {0}
 

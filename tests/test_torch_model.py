@@ -31,7 +31,8 @@ from repro_torch.models.paging import PagedKVConfig
 from repro_torch.weights import params_from_jax
 
 TOL = dict(atol=1e-5, rtol=1e-5)
-ARCHS = ("stablelm-3b", "qwen2-7b")
+#: musicgen-large: sinusoidal positions and a GELU MLP on every serving path
+ARCHS = ("stablelm-3b", "qwen2-7b", "musicgen-large")
 
 
 def _cfgs(arch):

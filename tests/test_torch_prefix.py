@@ -47,14 +47,24 @@ from repro_torch.weights import params_from_jax
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
-@pytest.fixture(scope="module")
-def models():
-    jcfg = dataclasses.replace(jax_reduced("stablelm-3b"), dtype="float32")
-    tcfg = dataclasses.replace(get_reduced_config("stablelm-3b"),
-                               dtype="float32")
+def _models(arch):
+    jcfg = dataclasses.replace(jax_reduced(arch), dtype="float32")
+    tcfg = dataclasses.replace(get_reduced_config(arch), dtype="float32")
     jparams = jax_init_params(jcfg, 0)
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams))
     return jcfg, tcfg, jparams, tparams
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _models("stablelm-3b")
+
+
+@pytest.fixture(scope="module", params=("stablelm-3b", "musicgen-large"))
+def arch_models(request):
+    """The model-level cases' configs: rotary positions, and sinusoidal
+    positions with a GELU MLP (musicgen-large)."""
+    return _models(request.param)
 
 
 def _close(t, j, **tol):
@@ -81,11 +91,11 @@ def _pools(cfg, num_pages, ps, rng, dtype=np.float32):
 
 
 @pytest.mark.parametrize("start", [16, 13], ids=["page-aligned", "mid-page"])
-def test_prefill_suffix_matches_jax(models, start):
+def test_prefill_suffix_matches_jax(arch_models, start):
     """Suffix logits and the suffix's KV lines match JAX within 1e-5 for a
     prefix that ends on a page boundary and one that ends inside a page
     (the line-granular prefix mask); the pool is not written."""
-    jcfg, tcfg, jparams, tparams = models
+    jcfg, tcfg, jparams, tparams = arch_models
     rng = np.random.default_rng(5)
     ps, S = 8, 11
     jc, tc = _pools(tcfg, 9, ps, rng)

@@ -33,14 +33,24 @@ from repro_torch.serving import spec as TS
 from repro_torch.weights import params_from_jax
 
 
-@pytest.fixture(scope="module")
-def models():
-    jcfg = dataclasses.replace(jax_reduced("stablelm-3b"), dtype="float32")
-    tcfg = dataclasses.replace(get_reduced_config("stablelm-3b"),
-                               dtype="float32")
+def _models(arch):
+    jcfg = dataclasses.replace(jax_reduced(arch), dtype="float32")
+    tcfg = dataclasses.replace(get_reduced_config(arch), dtype="float32")
     jparams = jax_init_params(jcfg, 0)
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams))
     return jcfg, tcfg, jparams, tparams
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _models("stablelm-3b")
+
+
+@pytest.fixture(scope="module", params=("stablelm-3b", "musicgen-large"))
+def arch_models(request):
+    """The model-level case's configs: rotary positions, and sinusoidal
+    positions with a GELU MLP (musicgen-large)."""
+    return _models(request.param)
 
 
 def _repeat_reqs(cls, vocab, n=3, seed=3, **kw):
@@ -99,11 +109,11 @@ def spec2_ref(models):
 
 # ------------------------------------------------------- model level ----
 
-def test_verify_tokens_matches_jax(models):
+def test_verify_tokens_matches_jax(arch_models):
     """Three positions per slot in one call: logits within 1e-5 of JAX's
     and the pool after the in-place writes equal to the JAX cache it
     returns (lines past slot 1's allocation land on the null page)."""
-    jcfg, tcfg, jparams, tparams = models
+    jcfg, tcfg, jparams, tparams = arch_models
     rng = np.random.default_rng(4)
     ps, S = 8, 3
     shape = (tcfg.num_layers, 10, ps, tcfg.num_kv_heads, tcfg.head_dim)

@@ -285,4 +285,4 @@ def test_ssd_wrapper_refuses_before_build():
     meta = [t.to("meta") for t in (x, dt, a, Bm, Cm)]
     with pytest.raises(ValueError, match="no attention kernel"):
         tops.ssd_scan(meta[0], meta[1], A.to("meta"), meta[3], meta[4])
-    assert tssd.launches == 0
+    assert tops.launch_counts()["ssd_scan"] == 0
